@@ -1,0 +1,121 @@
+"""Geometric descriptor-matching routines (port of
+sdslam_tpu/features/matching.py, the searches of the RGB-D main path).
+
+Each routine is a dense masked computation over fixed-capacity arrays:
+project -> geometric gating mask -> masked Hamming matrix (kernel K4) ->
+per-query best -> per-target conflict resolution.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from sdslam_tpu_torch.geometry import camera as cam_mod
+from sdslam_tpu_torch.geometry import lie
+from sdslam_tpu_torch.geometry.camera import CameraModel
+from sdslam_tpu_torch.ops import hamming as ham
+
+
+class MatchResult(NamedTuple):
+    """Assignment target-keypoint -> query index (-1 = unmatched)."""
+
+    kp_to_query: torch.Tensor  # [N] int32
+    kp_dist: torch.Tensor  # [N] int32 (BIG where unmatched)
+
+    @property
+    def matched(self):
+        return self.kp_to_query >= 0
+
+    def count(self):
+        return torch.sum(self.matched)
+
+
+def window_match(
+    uv_proj, q_desc, q_valid, kp_uv, kp_desc, kp_valid, radius, th_desc: int,
+    q_octave=None, kp_octave=None,
+    octave_window: Optional[Tuple[int, int]] = None,
+    ratio: Optional[float] = None,
+    q_angle=None, kp_angle=None, use_rotation: bool = False,
+) -> MatchResult:
+    """Core windowed projection match."""
+    Q = q_desc.shape[0]
+    N = kp_desc.shape[0]
+    radius = torch.broadcast_to(torch.as_tensor(radius, dtype=torch.float32,
+                                                device=uv_proj.device), (Q,))
+    du = torch.abs(uv_proj[:, None, 0] - kp_uv[None, :, 0])
+    dv = torch.abs(uv_proj[:, None, 1] - kp_uv[None, :, 1])
+    mask = (du <= radius[:, None]) & (dv <= radius[:, None])
+    mask &= q_valid[:, None] & kp_valid[None, :]
+    if octave_window is not None and q_octave is not None and kp_octave is not None:
+        lo, hi = octave_window
+        mask &= (kp_octave[None, :] >= q_octave[:, None] + lo) & (
+            kp_octave[None, :] <= q_octave[:, None] + hi
+        )
+    dist = ham.masked_dist(q_desc, kp_desc, mask)
+    d1, j1, d2 = ham.best2(dist)
+    ok = q_valid & (d1 <= th_desc)
+    if ratio is not None:
+        ok &= d1.to(torch.float32) < ratio * d2.to(torch.float32)
+    kp_to_q, kp_d = ham.resolve_to_targets(j1, d1, ok, N)
+    if use_rotation and q_angle is not None and kp_angle is not None:
+        matched = kp_to_q >= 0
+        dtheta = q_angle[torch.clamp(kp_to_q, 0, Q - 1).long()] - kp_angle
+        keep = ham.rotation_consistency(dtheta, matched)
+        kp_to_q = torch.where(keep, kp_to_q, torch.full_like(kp_to_q, -1))
+        kp_d = torch.where(keep, kp_d, torch.full_like(kp_d, ham.BIG))
+    return MatchResult(kp_to_q, kp_d)
+
+
+def search_by_projection(
+    cam: CameraModel, Tcw, q_pos_w, q_desc, q_valid, q_octave,
+    kp_uv, kp_desc, kp_valid, kp_octave, radius_px: float,
+    th_desc: int = ham.TH_HIGH, scale_factor: float = 2.0,
+    octave_window: Tuple[int, int] = (-1, 1),
+    q_angle=None, kp_angle=None, use_rotation: bool = False, border: float = 5.0,
+) -> MatchResult:
+    """Project world points into the frame and window-match (window scaled
+    by the query point's octave, octave gate [oct-1, oct+1])."""
+    Xc = lie.se3_apply(Tcw, q_pos_w)
+    uv, z = cam_mod.project(cam, Xc)
+    vis = q_valid & (z > 0.05) & cam_mod.in_image(cam, uv, border)
+    radius = radius_px * scale_factor ** q_octave.to(torch.float32)
+    return window_match(
+        uv, q_desc, vis, kp_uv, kp_desc, kp_valid, radius, th_desc,
+        q_octave=q_octave, kp_octave=kp_octave, octave_window=octave_window,
+        q_angle=q_angle, kp_angle=kp_angle, use_rotation=use_rotation,
+    )
+
+
+def predict_octave(dist, max_dist, scale_factor: float, n_levels: int):
+    """MapPoint::PredictScale: octave from max-distance / distance ratio."""
+    ratio = torch.clamp(max_dist / torch.clamp(dist, min=1e-6), min=1.0)
+    lvl = torch.ceil(torch.log(ratio) / torch.log(torch.tensor(scale_factor))).to(torch.int32)
+    return torch.clamp(lvl, 0, n_levels - 1)
+
+
+def search_local_points(
+    cam: CameraModel, Tcw, p_pos_w, p_desc, p_valid, p_normal, p_min_dist, p_max_dist,
+    kp_uv, kp_desc, kp_valid, kp_octave, th_radius, scale_factor: float, n_levels: int,
+    th_desc: int = ham.TH_HIGH, ratio: float = 0.8, view_cos_limit: float = 0.5,
+) -> MatchResult:
+    """TrackLocalMap search: frustum + view-angle + scale-band gating, then
+    windowed match with a ratio test."""
+    Xc = lie.se3_apply(Tcw, p_pos_w)
+    uv, z = cam_mod.project(cam, Xc)
+    PO = p_pos_w - lie.se3_t(lie.se3_inv(Tcw))[None, :]
+    dist = torch.linalg.norm(PO, dim=-1)
+    view_cos = torch.sum(PO * p_normal, dim=-1) / torch.clamp(dist, min=1e-6)
+    vis = (
+        p_valid & (z > 0.05) & cam_mod.in_image(cam, uv, 5.0)
+        & (dist >= p_min_dist * 0.8) & (dist <= p_max_dist * 1.2)
+        & (view_cos > view_cos_limit)
+    )
+    oct_pred = predict_octave(dist, p_max_dist, scale_factor, n_levels)
+    r = torch.where(view_cos > 0.998, torch.full_like(dist, 2.5), torch.full_like(dist, 4.0))
+    radius = r * th_radius * scale_factor ** oct_pred.to(torch.float32)
+    return window_match(
+        uv, p_desc, vis, kp_uv, kp_desc, kp_valid, radius, th_desc,
+        q_octave=oct_pred, kp_octave=kp_octave, octave_window=(-1, 1), ratio=ratio,
+    )

@@ -1,0 +1,80 @@
+"""State carried between the JAX package and the port, as dicts of numpy
+arrays (the map is this system's "weights").
+
+`map_state_from_numpy(d)` takes the JAX MapState's fields (e.g.
+`{k: np.asarray(v) for k, v in ms._asdict().items()}`, kf_pyramid as a
+tuple/list of arrays) and builds the port's MapState; uint32 descriptors
+become int32 bit patterns. `map_state_to_numpy` goes back, descriptors as
+uint32. The same pair exists for EKFState and DeviceState (the JAX
+DeviceState's IMU filter has no counterpart here and is dropped).
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from sdslam_tpu_torch.mapping.map_state import MapState
+from sdslam_tpu_torch.pipeline.sensors import EKFState
+from sdslam_tpu_torch.pipeline.tracking import DeviceState
+
+_DESC_FIELDS = ("kf_desc", "pt_desc")
+
+
+def _to_torch(a, device) -> torch.Tensor:
+    """A copy on device, 0-d arrays kept 0-d; uint32 -> int32 bit patterns."""
+    a = np.array(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a).to(device)
+
+
+def _to_numpy(t: torch.Tensor, desc: bool = False) -> np.ndarray:
+    a = t.detach().cpu().numpy()
+    return a.view(np.uint32) if desc else a
+
+
+def map_state_from_numpy(d: Mapping, device="cpu") -> MapState:
+    kw = {}
+    for f in MapState._fields:
+        if f == "kf_pyramid":
+            kw[f] = tuple(_to_torch(p, device) for p in d[f])
+        else:
+            kw[f] = _to_torch(d[f], device)
+    return MapState(**kw)
+
+
+def map_state_to_numpy(ms: MapState) -> dict:
+    out = {}
+    for f, v in ms._asdict().items():
+        if f == "kf_pyramid":
+            out[f] = tuple(_to_numpy(p) for p in v)
+        else:
+            out[f] = _to_numpy(v, desc=f in _DESC_FIELDS)
+    return out
+
+
+def ekf_state_from_numpy(d: Mapping, device="cpu") -> EKFState:
+    return EKFState(**{f: _to_torch(d[f], device) for f in EKFState._fields})
+
+
+def ekf_state_to_numpy(s: EKFState) -> dict:
+    return {f: _to_numpy(v) for f, v in s._asdict().items()}
+
+
+def device_state_from_numpy(d: Mapping, device="cpu") -> DeviceState:
+    """d: the JAX DeviceState's fields; d["ekf"] is a mapping of EKFState
+    fields (or an object with _asdict()); any "imu" entry is ignored."""
+    ekf = d["ekf"]
+    if hasattr(ekf, "_asdict"):
+        ekf = ekf._asdict()
+    kw = {f: _to_torch(d[f], device) for f in DeviceState._fields if f != "ekf"}
+    return DeviceState(ekf=ekf_state_from_numpy(ekf, device), **kw)
+
+
+def device_state_to_numpy(s: DeviceState) -> dict:
+    out = {f: _to_numpy(v) for f, v in s._asdict().items() if f != "ekf"}
+    out["ekf"] = ekf_state_to_numpy(s.ekf)
+    return out

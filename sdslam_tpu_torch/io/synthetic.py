@@ -1,0 +1,203 @@
+"""Synthetic photometric RGB-D scene renderer (torch port of
+sdslam_tpu/io/synthetic.py).
+
+The scene is built by the same numpy RNG recipe (bit-identical scene
+parameters for a seed); rendering runs in torch on whatever device the
+caller names, so the card renders its own frames.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from sdslam_tpu_torch.geometry import lie
+from sdslam_tpu_torch.geometry.camera import CameraModel
+
+
+class PlaneScene(NamedTuple):
+    normals: torch.Tensor  # [P,3] room planes n.x = d
+    offsets: torch.Tensor  # [P]
+    rect_origin: torch.Tensor  # [B,3]
+    rect_u: torch.Tensor  # [B,3]
+    rect_v: torch.Tensor  # [B,3]
+    freqs: torch.Tensor  # [K,3]
+    phases: torch.Tensor  # [K]
+    amps: torch.Tensor  # [K]
+    biases: torch.Tensor  # [P+B]
+
+    def to(self, device) -> "PlaneScene":
+        return PlaneScene(*(t.to(device) for t in self))
+
+
+def make_room_scene(
+    seed: int = 0, n_waves: int = 48, size: float = 2.5, closed: bool = False
+) -> PlaneScene:
+    """Room around the origin (x right, y down, z forward); the numpy draws
+    follow make_room_scene of sdslam_tpu/io/synthetic.py exactly."""
+    rng = np.random.default_rng(seed)
+    normals = np.array(
+        [[0.0, 0.0, -1.0], [1.0, 0.0, 0.0], [-1.0, 0.0, 0.0],
+         [0.0, -1.0, 0.0], [0.0, 1.0, 0.0]],
+        dtype=np.float32,
+    )
+    offsets = np.array([-size, -size / 2, -size / 2, -size / 3, -size / 3], np.float32)
+    n_waves = max(n_waves, 128)
+    dirs = rng.normal(size=(n_waves, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    mags = np.exp(rng.uniform(np.log(1.5), np.log(150.0), size=(n_waves, 1)))
+    freqs = (dirs * mags).astype(np.float32)
+    phases = rng.uniform(0, 2 * np.pi, size=n_waves).astype(np.float32)
+    amps = (mags[:, 0] ** 0.3).astype(np.float32)
+    amps *= np.sqrt(2.0) / np.sqrt((amps**2).sum())
+    origins, us, vs = [], [], []
+    for _ in range(8):
+        c = np.array(
+            [rng.uniform(-size / 3, size / 3), rng.uniform(-size / 4, size / 4),
+             rng.uniform(0.8, size - 0.4)],
+            np.float32,
+        )
+        a = rng.normal(size=3)
+        a /= np.linalg.norm(a)
+        b = np.cross(a, rng.normal(size=3))
+        b /= np.linalg.norm(b)
+        eu = rng.uniform(0.15, 0.45)
+        ev = rng.uniform(0.15, 0.45)
+        origins.append(c)
+        us.append((a * eu).astype(np.float32))
+        vs.append((b * ev).astype(np.float32))
+    biases = rng.uniform(0.35, 0.65, size=len(normals) + 8).astype(np.float32)
+    if closed:
+        normals = np.concatenate([normals, [[0.0, 0.0, 1.0]]]).astype(np.float32)
+        offsets = np.concatenate([offsets, [-size]]).astype(np.float32)
+        biases = np.concatenate(
+            [biases[: len(normals) - 1], rng.uniform(0.35, 0.65, size=1).astype(np.float32),
+             biases[len(normals) - 1:]]
+        )
+    t = torch.as_tensor
+    return PlaneScene(
+        t(normals), t(offsets), t(np.stack(origins)), t(np.stack(us)), t(np.stack(vs)),
+        t(freqs), t(phases), t(amps), t(biases),
+    )
+
+
+def scene_intensity(scene: PlaneScene, X, plane_idx):
+    phase = torch.einsum("...i,ki->...k", X, scene.freqs) + scene.phases
+    tex = torch.einsum("...k,k->...", torch.sin(phase), scene.amps)
+    return scene.biases[plane_idx] + 0.45 * torch.tanh(1.0 * tex)
+
+
+def render(scene: PlaneScene, cam: CameraModel, Tcw: torch.Tensor):
+    """Render grayscale [H,W] float32 in [0,255] and depth [H,W] (m) on
+    Tcw's device."""
+    dev = Tcw.device
+    H, W = cam.height, cam.width
+    Twc = lie.se3_inv(Tcw)
+    Rwc, twc = lie.se3_R(Twc), lie.se3_t(Twc)
+    u = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
+    v = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
+    dc = torch.stack([(u - cam.cx) / cam.fx, (v - cam.cy) / cam.fy, torch.ones_like(u)], -1)
+    dw = torch.einsum("ij,hwj->hwi", Rwc, dc)
+    n_dot_o = torch.einsum("pi,i->p", scene.normals, twc)
+    n_dot_d = torch.einsum("pi,hwi->hwp", scene.normals, dw)
+    tiny = torch.full_like(n_dot_d, 1e-6)
+    t = (scene.offsets - n_dot_o) / torch.where(torch.abs(n_dot_d) < 1e-6, tiny, n_dot_d)
+    t = torch.where(t > 1e-3, t, torch.full_like(t, float("inf")))
+
+    ru, rv = scene.rect_u, scene.rect_v
+    rn = torch.linalg.cross(ru, rv)
+    rn = rn / torch.linalg.norm(rn, dim=-1, keepdim=True)
+    num = torch.einsum("bi,bi->b", rn, scene.rect_origin - twc[None, :])
+    den = torch.einsum("bi,hwi->hwb", rn, dw)
+    tr_ = num / torch.where(torch.abs(den) < 1e-6, torch.full_like(den, 1e-6), den)
+    hit = twc + tr_[..., None] * dw[:, :, None, :]  # [H,W,B,3]
+    rel = hit - scene.rect_origin
+    au = torch.einsum("hwbi,bi->hwb", rel, ru) / torch.clamp(torch.sum(ru * ru, -1), min=1e-9)
+    av = torch.einsum("hwbi,bi->hwb", rel, rv) / torch.clamp(torch.sum(rv * rv, -1), min=1e-9)
+    inside = (torch.abs(au) <= 1.0) & (torch.abs(av) <= 1.0) & (tr_ > 1e-3)
+    tr_ = torch.where(inside, tr_, torch.full_like(tr_, float("inf")))
+
+    t_all = torch.cat([t, tr_], dim=-1)
+    depth, plane_idx = torch.min(t_all, dim=-1)
+    Xw = twc + depth[..., None] * dw
+    img = torch.clamp(scene_intensity(scene, Xw, plane_idx) * 255.0, 0.0, 255.0)
+    depth = torch.where(torch.isfinite(depth), depth, torch.zeros_like(depth))
+    return img, depth
+
+
+def _pose_from_center(c: np.ndarray, phi: np.ndarray) -> np.ndarray:
+    Rwc = lie.so3_exp(torch.as_tensor(phi, dtype=torch.float32)).numpy()
+    Rcw = Rwc.T
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = Rcw
+    T[:3, 3] = -Rcw @ c
+    return T
+
+
+def orbit_trajectory(n_frames: int, radius: float = 0.4, yaw_amp: float = 0.12, seed: int = 1):
+    """Smooth looping trajectory of Tcw poses [N,4,4]; starts at identity."""
+    poses = []
+    for t in np.linspace(0, 2 * np.pi, n_frames, endpoint=False):
+        c = np.array(
+            [radius * np.sin(t), 0.25 * radius * np.sin(2 * t), 0.3 * radius * (1 - np.cos(t))],
+            np.float32,
+        )
+        yaw = yaw_amp * np.sin(t)
+        phi = np.array([0.5 * yaw_amp * np.sin(2 * t), yaw, 0.0], np.float32)
+        poses.append(_pose_from_center(c, phi))
+    return torch.as_tensor(np.stack(poses))
+
+
+def forward_trajectory(n_frames: int, step: float = 0.02, yaw_rate: float = 0.0):
+    """Straight-ish dolly forward, constant velocity."""
+    poses = [
+        _pose_from_center(
+            np.array([0.0, 0.0, step * i], np.float32),
+            np.array([0.0, yaw_rate * i, 0.0], np.float32),
+        )
+        for i in range(n_frames)
+    ]
+    return torch.as_tensor(np.stack(poses))
+
+
+class SyntheticSequence:
+    """Dataset-like iterable of (timestamp, image, depth) with GT poses;
+    frames are rendered on `device`."""
+
+    def __init__(
+        self,
+        cam: CameraModel,
+        n_frames: int = 60,
+        trajectory: str = "orbit",
+        seed: int = 0,
+        fps: float = 30.0,
+        scene_kwargs: dict = None,
+        device="cpu",
+        **traj_kwargs,
+    ):
+        self.cam = cam
+        self.device = torch.device(device)
+        self.scene = make_room_scene(seed=seed, **(scene_kwargs or {})).to(self.device)
+        if trajectory == "orbit":
+            self.poses = orbit_trajectory(n_frames, **traj_kwargs)
+        elif trajectory == "forward":
+            self.poses = forward_trajectory(n_frames, **traj_kwargs)
+        elif trajectory == "custom":
+            self.poses = torch.as_tensor(traj_kwargs["poses"], dtype=torch.float32)
+            n_frames = self.poses.shape[0]
+        else:
+            raise ValueError(trajectory)
+        self.timestamps = np.arange(n_frames) / fps
+
+    def __len__(self):
+        return len(self.timestamps)
+
+    def frame(self, i: int):
+        img, depth = render(self.scene, self.cam, self.poses[i].to(self.device))
+        return self.timestamps[i], img, depth
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self.frame(i)

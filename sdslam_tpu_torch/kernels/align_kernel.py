@@ -1,0 +1,98 @@
+"""K1: one whole IC-LK Gauss-Newton alignment level (csrc/align_level.cu).
+
+Port of sdslam_tpu/ops/pallas/align_kernel.py::align_level. The plain
+version is the per-iteration XLA loop of
+sdslam_tpu/solvers/image_align.py:_align_level (fused=False), with the
+damped Hessian inverse Hinv precomputed by the caller as the fused path
+does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from sdslam_tpu_torch import _device
+from sdslam_tpu_torch.geometry import lie
+from sdslam_tpu_torch.kernels import _build
+from sdslam_tpu_torch.ops import sample
+
+LAUNCHES = 0
+PATCH_HALF = 2
+PATCH = (2 * PATCH_HALF) ** 2
+
+
+def gn_terms(img, X_ref, ref_patch, J, okpx, T, fx, fy, cx, cy):
+    """(b [6], chi2, n_px) of the photometric residual at iterate T."""
+    Xc = lie.se3_apply(T, X_ref)
+    z = Xc[:, 2]
+    zs = torch.clamp(z, min=1e-6)
+    u = fx * Xc[:, 0] / zs + cx
+    v = fy * Xc[:, 1] / zs + cy
+    cur, cur_ok = sample.sample_bilinear_patch(img, torch.stack([u, v], -1), PATCH_HALF)
+    m = okpx & cur_ok & (z > 0.01)[:, None]
+    r = torch.where(m, (cur - ref_patch) / 255.0, torch.zeros_like(cur))
+    n = torch.clamp(m.sum(), min=1).to(torch.int32)
+    chi2 = (r * r).sum() / n
+    b = torch.einsum("npi,np->i", torch.where(m[..., None], J, torch.zeros_like(J)), r)
+    return b, chi2, n
+
+
+def align_level_plain(img, X_ref, ref_patch, J, okpx, Hinv, T_init,
+                      fx: float, fy: float, cx: float, cy: float, iters: int = 30):
+    """Returns (T [4,4], chi2 f32, n_px i32): GN iterations with chi2
+    rollback, stopping on |delta| < 1e-7 or a chi2 rise."""
+    T = T_init
+    best_T = T
+    best = torch.full((), float("inf"), device=img.device)
+    it, stop = 0, False
+    while it < iters and not stop:
+        b, chi2, _ = gn_terms(img, X_ref, ref_patch, J, okpx, T, fx, fy, cx, cy)
+        improved = bool(chi2 < best)
+        if improved:
+            best_T = T
+        best = torch.minimum(chi2, best)
+        delta = Hinv @ b
+        T_next = T @ lie.se3_exp(-delta)
+        stop = bool(delta.abs().max() < 1e-7) or (it > 0 and not improved)
+        T = T_next
+        it += 1
+    _, chi2_T, n_T = gn_terms(img, X_ref, ref_patch, J, okpx, T, fx, fy, cx, cy)
+    T_out = torch.where(chi2_T <= best, T, best_T)
+    return T_out, torch.minimum(chi2_T, best), n_T
+
+
+def align_level(img, X_ref, ref_patch, J, okpx, Hinv, T_init,
+                fx: float, fy: float, cx: float, cy: float, iters: int = 30):
+    """One launch per level on the card; the plain loop for CPU tensors."""
+    if not _device.use_kernel(img, X_ref, ref_patch, J, okpx, Hinv, T_init):
+        return align_level_plain(img, X_ref, ref_patch, J, okpx, Hinv, T_init,
+                                 fx, fy, cx, cy, iters)
+    N = X_ref.shape[0]
+    H, W = img.shape
+    if H < 2 or W < 2:
+        raise ValueError(f"level image {H}x{W} too small for bilinear sampling")
+    _device.check_tensor("img", img, torch.float32, (H, W))
+    _device.check_tensor("X_ref", X_ref, torch.float32, (N, 3))
+    _device.check_tensor("ref_patch", ref_patch, torch.float32, (N, PATCH))
+    _device.check_tensor("J", J, torch.float32, (N, PATCH, 6))
+    _device.check_tensor("okpx", okpx, torch.bool, (N, PATCH))
+    _device.check_tensor("Hinv", Hinv, torch.float32, (6, 6))
+    _device.check_tensor("T_init", T_init, torch.float32, (4, 4))
+    out = torch.empty(16, dtype=torch.float32, device=img.device)
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = _build.bind(
+        "align_level", "sd_align_level",
+        [vp, ci, ci, vp, vp, vp, vp, ci, vp, vp, cf, cf, cf, cf, ci, vp, vp],
+    )
+    rc = fn(img.data_ptr(), H, W, X_ref.data_ptr(), ref_patch.data_ptr(), J.data_ptr(),
+            okpx.data_ptr(), N, Hinv.data_ptr(), T_init.data_ptr(),
+            float(fx), float(fy), float(cx), float(cy), int(iters), out.data_ptr(),
+            _device.stream_ptr(img))
+    _build.check(rc, "sd_align_level")
+    global LAUNCHES
+    LAUNCHES += 1
+    T = torch.eye(4, device=img.device)
+    T[:3] = out[:12].view(3, 4)
+    return T, out[12], out[13].to(torch.int32)

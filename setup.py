@@ -25,7 +25,8 @@ setup(
         "TPU-native semi-direct SLAM: JAX/XLA/Pallas re-architecture of the "
         "SD-SLAM pipeline (monocular / RGB-D / mono+IMU)"
     ),
-    packages=find_packages(include=["sdslam_tpu", "sdslam_tpu.*"]),
+    packages=find_packages(include=["sdslam_tpu", "sdslam_tpu.*",
+                                    "sdslam_tpu_torch", "sdslam_tpu_torch.*"]),
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "pyyaml", "pillow", "scipy"],
     entry_points={"console_scripts": ["sdslam-tpu=sdslam_tpu.cli:main"]},
