@@ -8,13 +8,22 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
   1. device   card name / power limit (nvidia-smi), torch name, capability
   2. build    nvcc for every kernel source, all in parallel
   3. kernels  each CUDA kernel against its plain PyTorch version on the
-              card at main-path shapes, with median times (CUDA events)
+              card at main-path shapes, with median times (CUDA events),
+              the least time the card could take (bound) and, where one
+              PyTorch call computes the same function, that call's time
   4. main     the RGB-D tracking + keyframe-mapping path at full size
               (640x480, 1024 keypoints, 256 KF slots, 16384 points) on a
               60-frame synthetic orbit rendered on the card; checks ATE,
-              keyframes and that every kernel was launched
+              keyframes and that every kernel of the path was launched
+  5. reloc    the same configuration: kidnap (blank frame) and recovery
+              photometrically, a 35 deg rolled revisit recovered by EPnP,
+              and an unrelated scene that must stay LOST
+  6. loop     SDSlamSystem with loop closing on the organic circuit (a
+              closed 3.5 m room, 240 + 40 frames, depth-scale drift): a
+              correction with global BA must fire and lower the keyframe ATE
 Then the kernel table as one JSON line, the nvidia-smi line, and last
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}. Launch counters are set to 0 before each of
+phases 4-6 and read after it.
 
 It imports nothing from JAX or the JAX package and never runs on the CPU.
 """
@@ -25,7 +34,6 @@ import json
 import math
 import statistics
 import subprocess
-import sys
 import time
 import warnings
 
@@ -64,6 +72,37 @@ def median_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+# --------------------------------------------------------------------------
+# bounds: the least time the card could take for a kernel's work, the larger
+# of its bytes (each input read once, each output written once) over the
+# memory rate and its operations over the scalar float32 rate (NVIDIA H100
+# SXM data sheet; integer and float operations alike, so the bound stays a
+# lower bound). Operation counts per unit of work, counted from the sources:
+# --------------------------------------------------------------------------
+
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
+PROJ_FLOP = 25  # transform (18) + perspective division and intrinsics (7)
+TAP_FLOP = 26  # bilinear blend (9), residual (2), J^T r (12), r^2 (2), count (1)
+TAP_BYTES = 28  # a valid tap's Jacobian row (6 floats) and reference intensity
+POSE_EDGE_FLOP = 230  # residual + 3x6 Jacobian + robust weight + H (126) + b (36)
+POSE_RESID_FLOP = 40  # the residual-only pass closing each round
+BA_EDGE_FLOP = 450  # Jc/Jp, W, Hcc, bc, Hpp, bp and the V.ybp terms of one edge
+BA_POINT_FLOP = 150  # 3x3 damped Cholesky inverse, ybp and Ze per point
+HAMMING_OPS_PER_WORD = 3  # xor, popcount, add
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by) for the given bytes and operations."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / SCALAR_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
 # --------------------------------------------------------------------------
@@ -163,6 +202,39 @@ def _ba_inputs(dev, K: int, Mo: int = 10, P: int = 2048):
     return (packed, lam, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, True, K)
 
 
+def _gn_inputs(dev, level: int, B: int = 256, n_pts: int = 1024, n_refs: int = 8):
+    """K5 at the relocalization shapes: B lanes (keyframe slots), each with
+    its own reference frame of the orbit and its own keypoints, against one
+    current image, at an iterate perturbed from the true relative pose."""
+    from sdslam_tpu_torch.geometry import camera as cam_mod, lie
+    from sdslam_tpu_torch.io import synthetic
+    from sdslam_tpu_torch.ops import pyramid, sample
+    from sdslam_tpu_torch.solvers import image_align as ia
+
+    cam = main_camera()
+    seq = synthetic.SyntheticSequence(cam, n_frames=60, trajectory="orbit", radius=0.06,
+                                      yaw_amp=0.04, device=dev)
+    refs = [seq.frame(2 * k) for k in range(n_refs)]
+    _, cur, _ = seq.frame(7)
+    g = torch.Generator(device="cpu").manual_seed(SEED + 4)
+    lane_ref = torch.arange(B) % n_refs
+    ref_lvl = torch.stack([pyramid.build_pyramid(refs[r][1], 5)[level] for r in range(n_refs)])
+    uv = torch.stack([torch.rand(B, n_pts, generator=g) * (cam.width - 60) + 30,
+                      torch.rand(B, n_pts, generator=g) * (cam.height - 60) + 30], -1).to(dev)
+    d = torch.stack([sample.sample_nearest(refs[int(r)][2], uv[b]) for b, r in enumerate(lane_ref)])
+    X = cam_mod.backproject(cam, uv, torch.clamp(d, min=1e-3))
+    s = 0.5**level
+    patch, J, ok = ia._precompute_level(ref_lvl[lane_ref.to(dev)], uv * s, X, d > 0,
+                                        cam.fx * s, cam.fy * s)
+    T_true = seq.poses[7][None] @ lie.se3_inv(seq.poses[2 * lane_ref])
+    xi = torch.randn(B, 6, generator=g) * torch.tensor([0.004, 0.004, 0.004, 0.003, 0.003, 0.003])
+    T = (lie.se3_exp(xi) @ T_true).to(dev)
+    Xc = lie.se3_apply(T[:, None], X)
+    img = pyramid.build_pyramid(cur, 5)[level]
+    return (img.contiguous(), Xc.contiguous(), patch.contiguous(), J.contiguous(),
+            ok.contiguous(), cam.fx * s, cam.fy * s, cam.cx * s, cam.cy * s)
+
+
 def main_camera():
     from sdslam_tpu_torch.geometry.camera import CameraModel
 
@@ -240,9 +312,20 @@ def phase_kernels(dev):
         torch.cuda.synchronize()
         if not torch.equal(out, ref):
             raise AssertionError(f"hamming {na}x{nb}: kernel != plain")
+        bms, by = bound(nbytes(da, db, out), na * nb * 8 * HAMMING_OPS_PER_WORD)
+        # the library yardstick: torch.cdist with p=0 counts differing
+        # elements of the descriptors unpacked to {0,1} floats (the unpack
+        # is not timed)
+        shifts = torch.arange(32, device=dev, dtype=torch.int32)
+        ba_ = ((da[:, :, None] >> shifts) & 1).reshape(na, 256).float()
+        bb_ = ((db[:, :, None] >> shifts) & 1).reshape(nb, 256).float()
+        if not torch.equal(torch.cdist(ba_, bb_, p=0).round().to(torch.int32), ref):
+            raise AssertionError(f"hamming {na}x{nb}: cdist yardstick != plain")
         cases.append({"shape": [na, nb], "max_abs_err": 0.0,
                       "ms": median_ms(lambda: hk.hamming_matrix(da, db)),
-                      "plain_ms": median_ms(lambda: hk.hamming_matrix_plain(da, db))})
+                      "plain_ms": median_ms(lambda: hk.hamming_matrix_plain(da, db)),
+                      "bound_ms": bms, "bound_by": by,
+                      "library_ms": median_ms(lambda: torch.cdist(ba_, bb_, p=0))})
     emit("kernel", name="hamming", tol="exact", cases=cases)
     rows["hamming"] = cases
 
@@ -252,7 +335,16 @@ def phase_kernels(dev):
     for level in (4, 3, 2):
         args = _align_inputs(dev, level)
         T, chi2, n = ak.align_level(*args)
-        Tp, chi2p, np_ = ak.align_level_plain(*args)
+        # the plain loop runs the kernel's GN iterations; with the final
+        # chi2 evaluation the kernel evaluates the terms n_iter + 1 times.
+        # Bytes: the image, X, the masks, Hinv, T_init and J and the patch
+        # of the taps valid at the final iterate (a lower bound on the taps
+        # any iterate reads), and the 16-float output
+        Tp, chi2p, np_, n_iter = ak.align_level_steps(*args)
+        img, X, _, _, okpx, Hinv, T_init = args[:7]
+        N = X.shape[0]
+        bms, by = bound(nbytes(img, X, okpx, Hinv, T_init) + int(np_) * TAP_BYTES + 16 * 4,
+                        (n_iter + 1) * (N * PROJ_FLOP + int(np_) * TAP_FLOP))
         torch.cuda.synchronize()
         err, chi2_rel = _max_abs(T, Tp), _rel(chi2, chi2p)
         if not (err <= 1e-4 and chi2_rel <= 1e-4 and int(n) == int(np_)):
@@ -260,9 +352,10 @@ def phase_kernels(dev):
                                  f"{chi2_rel}, n_px {int(n)} vs {int(np_)}")
         cases.append({"level": level, "hw": list(args[0].shape), "max_abs_err": err,
                       "chi2": float(chi2), "chi2_plain": float(chi2p), "chi2_rel_err": chi2_rel,
-                      "n_px": int(n), "n_px_plain": int(np_),
+                      "n_px": int(n), "n_px_plain": int(np_), "gn_iterations": n_iter,
                       "ms": median_ms(lambda: ak.align_level(*args)),
-                      "plain_ms": median_ms(lambda: ak.align_level_plain(*args), reps=20)})
+                      "plain_ms": median_ms(lambda: ak.align_level_plain(*args), reps=20),
+                      "bound_ms": bms, "bound_by": by, "library_ms": None})
     emit("kernel", name="align_level", tol="T 1e-4 abs, chi2 1e-4 rel, n_px equal", cases=cases)
     rows["align_level"] = cases
 
@@ -279,6 +372,9 @@ def phase_kernels(dev):
         torch.cuda.synchronize()
         err, chi2_rel = _max_abs(T, Tp), _rel(c, cp)
         counts = (int(n), int(n_p), int(m.sum()))
+        N, rounds, iters = args[0].shape[0], args[9], args[10]
+        bms, by = bound(nbytes(*args[:4], T, m, n, c),
+                        N * (rounds * iters * POSE_EDGE_FLOP + (rounds + 1) * POSE_RESID_FLOP))
         if not (err <= 1e-4 and torch.equal(m, mp) and len(set(counts)) == 1
                 and chi2_rel <= 1e-4):
             raise AssertionError(
@@ -288,7 +384,8 @@ def phase_kernels(dev):
                       "max_abs_err": err, "chi2_rel_err": chi2_rel,
                       "n_inliers": int(n), "n_inliers_plain": int(n_p),
                       "ms": median_ms(lambda: pk.pose_optimize(*args)),
-                      "plain_ms": median_ms(lambda: pk.pose_optimize_plain(*args))})
+                      "plain_ms": median_ms(lambda: pk.pose_optimize_plain(*args)),
+                      "bound_ms": bms, "bound_by": by, "library_ms": None})
     emit("kernel", name="pose_gn",
          tol="T 1e-4 abs, masks and counts equal, chi2 1e-4 rel", cases=cases)
     rows["pose_gn"] = cases
@@ -298,21 +395,62 @@ def phase_kernels(dev):
     # in a channel whose float32 conditioning is worse (the residual-derived
     # ones, u - u_obs cancels ~300 px to ~0.5 px), within 8x the float32
     # plain version's own error there
+    # the last case is the global-BA shape phase 6 packs: 256 KF slots,
+    # max_obs 16 observation planes over the 16384-point pool
     cases = []
-    for K, emit_zt in ((24, True), (80, False)):
-        args = _ba_inputs(dev, K)
+    for K, emit_zt, Mo, P in ((24, True, 10, 2048), (80, False, 10, 2048),
+                              (256, False, 16, 16384)):
+        args = _ba_inputs(dev, K, Mo=Mo, P=P)
         out = bk.ba_edge_schur(*args, emit_zt=emit_zt)
         ref = bk.ba_edge_schur_plain(*args, emit_zt=emit_zt)
         ref64 = bk.ba_edge_schur_plain(args[0].double(), *args[1:], emit_zt=emit_zt)
         torch.cuda.synchronize()
         worst, abs_err, where = _ba_compare(K, out, ref, ref64)
+        del ref64
+        bms, by = bound(nbytes(args[0], *out), Mo * P * BA_EDGE_FLOP + P * BA_POINT_FLOP)
         cases.append({"K": K, "emit_zt": emit_zt, "shape": list(args[0].shape),
                       "max_abs_err": abs_err, "worst_err_over_tol": worst, "worst": where,
                       "ms": median_ms(lambda: bk.ba_edge_schur(*args, emit_zt=emit_zt)),
-                      "plain_ms": median_ms(lambda: bk.ba_edge_schur_plain(*args, emit_zt=emit_zt))})
+                      "plain_ms": median_ms(lambda: bk.ba_edge_schur_plain(*args, emit_zt=emit_zt)),
+                      "bound_ms": bms, "bound_by": by, "library_ms": None})
     emit("kernel", name="ba_schur", tol="per channel vs float64: max(1e-4, 8x plain f32 err)",
          cases=cases)
     rows["ba_schur"] = cases
+
+    # K5: n_px equal; chi2_sum within 1e-4 relative; b channel by channel
+    # (the 6 components over the 256 lanes) within 1e-4 of |ref| plus the
+    # channel's median |ref| (see _channel_rel): the kernel and the plain
+    # einsum sum ~16k taps per lane in another order
+    from sdslam_tpu_torch.kernels import accumulate_gn_kernel as gk
+
+    cases = []
+    for level in (4, 3):
+        args = _gn_inputs(dev, level)
+        b, chi2, n = gk.accumulate_gn(*args)
+        bp, chi2p, n_p = gk.accumulate_gn_plain(*args)
+        torch.cuda.synchronize()
+        b_rel = float(_channel_rel(b.T, bp.T).max())
+        chi2_rel = float(((chi2 - chi2p).abs() / chi2p.abs().clamp(min=1e-30)).max())
+        if not (torch.equal(n, n_p) and chi2_rel <= 1e-4 and b_rel <= 1e-4):
+            raise AssertionError(f"accumulate_gn level {level}: n equal {torch.equal(n, n_p)}, "
+                                 f"chi2 rel {chi2_rel}, b rel {b_rel}")
+        # bytes: the image, Xc and the masks of every point, J and the patch
+        # of the valid taps only (the kernel skips the others' reads), the
+        # outputs
+        img, Xc, _, _, okpx = args[:5]
+        B, N = Xc.shape[:2]
+        bms, by = bound(nbytes(img, Xc, okpx, b, chi2, n) + int(n_p.sum()) * TAP_BYTES,
+                        B * N * PROJ_FLOP + int(n_p.sum()) * TAP_FLOP)
+        cases.append({"level": level, "hw": list(args[0].shape), "B": B, "N": N,
+                      "max_abs_err": max(_max_abs(b, bp), _max_abs(chi2, chi2p)),
+                      "b_rel_err": b_rel, "chi2_rel_err": chi2_rel,
+                      "n_px_total": int(n.sum()),
+                      "ms": median_ms(lambda: gk.accumulate_gn(*args)),
+                      "plain_ms": median_ms(lambda: gk.accumulate_gn_plain(*args)),
+                      "bound_ms": bms, "bound_by": by, "library_ms": None})
+    emit("kernel", name="accumulate_gn",
+         tol="n_px equal, chi2_sum 1e-4 rel, b per channel 1e-4", cases=cases)
+    rows["accumulate_gn"] = cases
     return rows
 
 
@@ -325,15 +463,82 @@ KERNEL_META = {
                  "sdslam_tpu/ops/pallas/ba_schur_kernel.py:258"),
     "hamming": ("sdslam_tpu_torch/csrc/hamming.cu",
                 "sdslam_tpu/ops/pallas/hamming_kernel.py:56"),
+    "accumulate_gn": ("sdslam_tpu_torch/csrc/accumulate_gn.cu",
+                      "sdslam_tpu/ops/pallas/align_kernel.py:405"),
+}
+
+# the kernels each path must launch
+PATH_KERNELS = {
+    "main": ("align_level", "pose_gn", "ba_schur", "hamming"),
+    "reloc": ("accumulate_gn", "pose_gn", "hamming"),
+    "loop": ("accumulate_gn", "hamming", "ba_schur"),
 }
 
 
 def kernel_modules():
     from sdslam_tpu_torch.kernels import (
-        align_kernel, ba_schur_kernel, hamming_kernel, pose_kernel,
+        accumulate_gn_kernel, align_kernel, ba_schur_kernel, hamming_kernel, pose_kernel,
     )
     return {"align_level": align_kernel, "pose_gn": pose_kernel,
-            "ba_schur": ba_schur_kernel, "hamming": hamming_kernel}
+            "ba_schur": ba_schur_kernel, "hamming": hamming_kernel,
+            "accumulate_gn": accumulate_gn_kernel}
+
+
+def reset_launches():
+    for m in kernel_modules().values():
+        m.LAUNCHES = 0
+
+
+def read_launches(path: str):
+    """Launch counts since reset_launches(); fails if a kernel of `path`
+    never launched."""
+    launches = {k: m.LAUNCHES for k, m in kernel_modules().items()}
+    missing = [k for k in PATH_KERNELS[path] if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{path} path never launched: {missing}")
+    return launches
+
+
+def main_config():
+    from sdslam_tpu_torch.utils.config import MapConfig, ORBConfig, SystemConfig, TrackingConfig
+
+    return SystemConfig(
+        camera=main_camera(),
+        orb=ORBConfig(max_keypoints=1024, n_levels=5),
+        map=MapConfig(max_keyframes=256, max_points=16384, max_kps_per_frame=1024),
+        tracking=TrackingConfig(depth_map_factor=1000.0),
+    )
+
+
+def sensor_frames(seq, idx):
+    """Camera payloads as a sensor delivers them: u8 intensity and u16
+    millimetre depth on the host."""
+    out = []
+    for k in idx:
+        ts, img, dep = seq.frame(k)
+        out.append((img.cpu().numpy().astype(np.uint8),
+                    (dep.cpu().numpy() * 1000).astype(np.uint16), ts))
+    return out
+
+
+class SyncCounter:
+    """Counts the calls that make the host wait for the card (CUDA sync
+    debug mode warns once per call), including hidden host<->device copies."""
+
+    def __enter__(self):
+        self._cm = warnings.catch_warnings(record=True)
+        self.caught = self._cm.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode(0)
+        self._cm.__exit__(*exc)
+
+    @property
+    def n(self) -> int:
+        return sum("synchroniz" in str(w.message).lower() for w in self.caught)
 
 
 def phase_main(dev, n_frames: int = 60, n_single: int = 6):
@@ -341,47 +546,23 @@ def phase_main(dev, n_frames: int = 60, n_single: int = 6):
     from sdslam_tpu_torch.io import synthetic
     from sdslam_tpu_torch.pipeline.tracking import RGBDTracker
     from sdslam_tpu_torch.utils import metrics
-    from sdslam_tpu_torch.utils.config import MapConfig, ORBConfig, SystemConfig, TrackingConfig
 
-    cam = main_camera()
-    cfg = SystemConfig(
-        camera=cam,
-        orb=ORBConfig(max_keypoints=1024, n_levels=5),
-        map=MapConfig(max_keyframes=256, max_points=16384, max_kps_per_frame=1024),
-        tracking=TrackingConfig(depth_map_factor=1000.0),
-    )
-    seq = synthetic.SyntheticSequence(cam, n_frames=n_frames, trajectory="orbit",
+    cfg = main_config()
+    seq = synthetic.SyntheticSequence(cfg.camera, n_frames=n_frames, trajectory="orbit",
                                       radius=0.06, yaw_amp=0.04, device=dev)
-    # camera payloads as a sensor delivers them (bench.py): u8 intensity and
-    # u16 millimetre depth on the host, packed and uploaded by the tracker
-    frames = []
-    for k in range(n_frames):
-        ts, img, dep = seq.frame(k)
-        frames.append((img.cpu().numpy().astype(np.uint8),
-                       (dep.cpu().numpy() * 1000).astype(np.uint16), ts))
-    mods = kernel_modules()
-    for m in mods.values():
-        m.LAUNCHES = 0
+    frames = sensor_frames(seq, range(n_frames))
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     tracker = RGBDTracker(cfg, device=dev)
-    # every call that makes the host wait for the card warns once in sync
-    # debug mode; the count covers the tracker's own reads and any hidden
-    # host<->device copy
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            t0 = time.perf_counter()
-            for img, dep, ts in frames[:n_single]:
-                tracker.track(img, dep, ts)
-            tracker.track_batch(frames[n_single:])
-            tracker.flush()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    n_syncs = sum("synchroniz" in str(w.message).lower() for w in caught)
-    launches = {k: m.LAUNCHES for k, m in mods.items()}
+    with SyncCounter() as syncs:
+        t0 = time.perf_counter()
+        for img, dep, ts in frames[:n_single]:
+            tracker.track(img, dep, ts)
+        tracker.track_batch(frames[n_single:])
+        tracker.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_launches("main")
     est = np.stack([np.asarray(p) for p in tracker.trajectory])
     gt = seq.poses.numpy()
     ate = metrics.ate_rmse(est, gt, align=False)
@@ -392,7 +573,7 @@ def phase_main(dev, n_frames: int = 60, n_single: int = 6):
          keyframes=n_kf, points=n_pts, wall_fps=n_frames / wall,
          median_track_ms=statistics.median(ft["track"]) if ft["track"] else None,
          median_kf_ms=statistics.median(ft["kf"]) if ft["kf"] else None,
-         host_syncs_per_frame=n_syncs / n_frames,
+         host_syncs_per_frame=syncs.n / n_frames,
          tracker_reads_per_frame=tracker.host_syncs / n_frames,
          max_memory_allocated_mb=torch.cuda.max_memory_allocated() / 2**20,
          launches=launches)
@@ -404,9 +585,216 @@ def phase_main(dev, n_frames: int = 60, n_single: int = 6):
         raise AssertionError(f"ATE {ate * 100:.3f} cm >= 2 cm")
     if n_kf < 3:
         raise AssertionError(f"only {n_kf} keyframes")
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"main path never launched: {missing}")
+    return launches
+
+
+class SectionTimer:
+    """Times module functions on the card while active: each listed
+    (module, name) is wrapped so that every call records CUDA events around
+    itself (no host sync); `ms()` reads them after the caller synchronized.
+    The originals are restored on exit."""
+
+    def __init__(self, *targets):
+        self.targets = targets
+        self.events = {name: [] for _, name in targets}
+
+    def _wrap(self, fn, name):
+        def timed(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            self.events[name].append((start, end))
+            return out
+        return timed
+
+    def __enter__(self):
+        self.orig = [(m, n, getattr(m, n)) for m, n in self.targets]
+        for m, n, fn in self.orig:
+            setattr(m, n, self._wrap(fn, n))
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.orig:
+            setattr(m, n, fn)
+
+    def ms(self):
+        return {n: [a.elapsed_time(b) for a, b in ev] for n, ev in self.events.items()}
+
+
+def _pose_err(T, T_gt):
+    """(max |translation|, max |rotation|) of log(T T_gt^-1)."""
+    from sdslam_tpu_torch.geometry import lie
+
+    e = lie.se3_log(torch.as_tensor(np.asarray(T, np.float32)) @
+                    lie.se3_inv(torch.as_tensor(np.asarray(T_gt, np.float32)).cpu()))
+    return float(e[:3].abs().max()), float(e[3:].abs().max())
+
+
+def phase_reloc(dev, n_track: int = 30, revisit: int = 10):
+    """Kidnap and recovery at the main path's configuration (the cases of
+    tests/test_relocalization.py at full width). Returns {kernel: launches}."""
+    from sdslam_tpu_torch.io import synthetic
+    from sdslam_tpu_torch.pipeline import relocalization as RL
+    from sdslam_tpu_torch.pipeline.tracking import RGBDTracker
+
+    cfg = main_config()
+    cam = cfg.camera
+    seq = synthetic.SyntheticSequence(cam, n_frames=60, trajectory="orbit", radius=0.06,
+                                      yaw_amp=0.04, device=dev)
+    frames = sensor_frames(seq, range(n_track))
+    blank = (np.zeros((cam.height, cam.width), np.uint8),
+             np.zeros((cam.height, cam.width), np.uint16))
+    (img_r, dep_r, _), = sensor_frames(seq, [revisit])
+    roll = np.deg2rad(35.0)
+    Rz = np.eye(4, dtype=np.float32)
+    Rz[:2, :2] = [[np.cos(roll), -np.sin(roll)], [np.sin(roll), np.cos(roll)]]
+    T_roll = torch.as_tensor(Rz) @ seq.poses[revisit]
+    img, dep = synthetic.render(seq.scene, cam, T_roll.to(dev))
+    rolled = (img.cpu().numpy().astype(np.uint8), (dep.cpu().numpy() * 1000).astype(np.uint16))
+    other = synthetic.SyntheticSequence(cam, n_frames=2, seed=9, device=dev)
+    (img_o, dep_o, _), = sensor_frames(other, [0])
+
+    tracker = RGBDTracker(cfg, device=dev)
+    for im, d, ts in frames:
+        tracker.track(im, d, ts)
+    tracker.flush()
+    if tracker.st.status != "OK":
+        raise AssertionError(f"reloc: tracking status {tracker.st.status} before the kidnap")
+    reset_launches()
+    reloc_ms, checks = [], {}
+    t = 100.0
+
+    def feed(im, d, expect, what):
+        nonlocal t
+        t += 1.0
+        lost_before = tracker.st.status == "LOST"
+        a = time.perf_counter()
+        T = tracker.track(im, d, t)
+        tracker.flush()
+        torch.cuda.synchronize()
+        if lost_before:
+            reloc_ms.append((time.perf_counter() - a) * 1e3)
+        if tracker.st.status != expect:
+            raise AssertionError(f"reloc, {what}: status {tracker.st.status}, expected {expect}")
+        return T
+
+    with SyncCounter() as syncs, SectionTimer((RL, "align_pool"), (RL, "_verify_photometric"),
+                                              (RL, "_verify_epnp")) as sections:
+        syncs0 = tracker.host_syncs
+        feed(*blank, "LOST", "blank frame")
+        T = feed(img_r, dep_r, "OK", f"frame {revisit}'s viewpoint")
+        checks["photometric"] = _pose_err(T, seq.poses[revisit])
+        feed(*blank, "LOST", "second blank frame")
+        T = feed(*rolled, "OK", "35 deg roll")
+        checks["epnp_roll35"] = _pose_err(T, T_roll)
+        feed(*blank, "LOST", "third blank frame")
+        feed(img_o, dep_o, "LOST", "unrelated scene (seed 9)")
+        tracker_reads = tracker.host_syncs - syncs0
+    launches = read_launches("reloc")
+    emit("reloc", relocalizations=len(reloc_ms), ms_per_relocalization=reloc_ms,
+         section_ms=sections.ms(),
+         pose_err={k: {"trans_m": v[0], "rot_rad": v[1]} for k, v in checks.items()},
+         host_syncs=syncs.n, tracker_reads=tracker_reads, launches=launches)
+    for name, (lim_t, lim_r) in (("photometric", (0.01, 0.01)), ("epnp_roll35", (0.02, 0.02))):
+        et, er = checks[name]
+        if not (et < lim_t and er < lim_r):
+            raise AssertionError(f"reloc {name}: pose error {et} m / {er} rad")
+    return launches
+
+
+def phase_loop(dev, n_lap: int = 240, n_revisit: int = 40, bias_amp: float = 0.08):
+    """SDSlamSystem with loop closing on the organic circuit of
+    tests/test_loop_organic.py at the main path's configuration. Returns
+    {kernel: launches}."""
+    from sdslam_tpu_torch.io import synthetic
+    from sdslam_tpu_torch.pipeline import loop_closing as LC
+    from sdslam_tpu_torch.solvers import ba as ba_mod
+    from sdslam_tpu_torch.system import RGBD, SDSlamSystem
+    from sdslam_tpu_torch.utils import metrics
+
+    cfg = main_config()
+    cam = cfg.camera
+    lap = synthetic.circuit_trajectory(n_lap, radius=0.6)
+    poses = torch.cat([lap, lap[:n_revisit]])
+    seq = synthetic.SyntheticSequence(cam, trajectory="custom", poses=poses,
+                                      scene_kwargs={"closed": True, "size": 3.5}, device=dev)
+    n = len(seq)
+    noise = np.random.default_rng(11)
+    frames = []
+    for i in range(n):
+        _, img, depth = seq.frame(i)
+        img8 = np.clip(img.cpu().numpy() + noise.normal(0, 2.0, (cam.height, cam.width)),
+                       0, 255).astype(np.uint8)
+        bias = 1.0 + bias_amp * np.sin(2 * np.pi * i / n_lap)
+        dep = depth.cpu().numpy()
+        dep16 = np.clip((dep * bias + noise.normal(0, 0.01, dep.shape)) * 1000.0,
+                        0, 65535).astype(np.uint16)
+        frames.append((img8, dep16, float(i) / 30.0))
+
+    sysm = SDSlamSystem(cfg, sensor=RGBD, loop_closing=True, device=dev)
+    # the map before the first call whose loop closer applied a correction
+    # (the map state is never written in place, so holding it costs nothing)
+    pre = None
+
+    def step(call, *a):
+        nonlocal pre
+        ms0, k = sysm.tracker.ms, len(sysm.loop_infos)
+        call(*a)
+        if pre is None and any(i.get("corrected") for i in sysm.loop_infos[k:]):
+            pre = ms0
+
+    reset_launches()
+    # sections are timed only: nothing below asserts on them
+    with SectionTimer((LC, "detect_and_consistency"), (LC, "verify_loop_sim3"),
+                      (LC.LoopCloser, "_apply_correction"), (LC, "correct_loop_poses"),
+                      (LC, "fuse_loop_points"), (ba_mod, "global_ba")) as sections:
+        t0 = time.perf_counter()
+        for img8, dep16, ts in frames:
+            step(sysm.track_rgbd, img8, dep16, ts)
+        step(sysm.finish)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    sec = sections.ms()
+    launches = read_launches("loop")
+    corrections = [i for i in sysm.loop_infos if i.get("corrected")]
+    gt = seq.poses.numpy()
+
+    def kf_ate(ms):
+        kf_valid, kf_fid = ms.kf_valid.cpu().numpy(), ms.kf_frame_id.cpu().numpy()
+        sel = np.flatnonzero(kf_valid & (kf_fid >= 0) & (kf_fid < n))
+        return metrics.ate_rmse(ms.kf_Tcw.cpu().numpy()[sel], gt[kf_fid[sel]], align=True)
+
+    ms = sysm.tracker.ms
+    le = ms.loop_edges.cpu().numpy()
+    status = sysm.get_tracking_state()
+    ate_pre = kf_ate(pre) if pre is not None else None
+    ate_post = kf_ate(ms)
+    est = np.stack([np.asarray(p) for p in sysm.tracker.trajectory])
+    det = sec.pop("detect_and_consistency")
+    emit("loop", frames=n, status=status, corrections=len(corrections),
+         gba_runs=sum(bool(i.get("global_ba")) for i in corrections),
+         detections=sum("detected" in i for i in sysm.loop_infos),
+         kf_ate_before_cm=None if ate_pre is None else ate_pre * 100,
+         kf_ate_after_cm=ate_post * 100, keyframes=int(ms.kf_valid.sum()),
+         loop_edges=le[(le >= 0).all(1)].tolist(),
+         frame_ate_cm=metrics.ate_rmse(est, gt, align=True) * 100,
+         ms_per_detection=statistics.median(det) if det else None,
+         ms_per_correction=sec.pop("_apply_correction"),
+         section_ms=sec, wall_fps=n / wall, launches=launches)
+    if not corrections:
+        raise AssertionError("loop: no correction fired")
+    if not all(i.get("global_ba") for i in corrections):
+        raise AssertionError("loop: correction applied but global BA did not run")
+    if not ate_post < ate_pre:
+        raise AssertionError(f"loop: keyframe ATE {ate_pre} -> {ate_post} did not drop")
+    if not (le >= 0).any():
+        raise AssertionError("loop: no loop edge recorded")
+    if status != "OK":
+        raise AssertionError(f"loop: final status {status}")
+    if not np.all(np.isfinite(est)) or est.shape != gt.shape:
+        raise AssertionError("loop: trajectory not finite or of the wrong shape")
     return launches
 
 
@@ -432,18 +820,30 @@ def main():
          ptxas={k: [ln for ln in v.splitlines() if "registers" in ln or "spill" in ln]
                 for k, v in logs.items()})
 
+    seconds = {}
+    t0 = time.perf_counter()
     table = phase_kernels(dev)
-    launches = phase_main(dev)
+    seconds["kernels"] = time.perf_counter() - t0
+    by_path = {}
+    for name, fn in (("main", phase_main), ("reloc", phase_reloc), ("loop", phase_loop)):
+        t0 = time.perf_counter()
+        by_path[name] = fn(dev)
+        seconds[name] = time.perf_counter() - t0
+    emit("seconds", **seconds)
 
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
         cases = table[name]
+        last = cases[-1]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name],
+            "launches": sum(p[name] for p in by_path.values()),
+            "launches_by_path": {path: p[name] for path, p in by_path.items()},
             "max_abs_err": max(c["max_abs_err"] for c in cases),
-            "ms": cases[-1]["ms"], "plain_ms": cases[-1]["plain_ms"],
-            "cases": [{k: c[k] for k in c if k in ("shape", "level", "K", "prior_rad", "ms", "plain_ms")}
+            **{k: last[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "cases": [{k: c[k] for k in c if k in ("shape", "level", "K", "prior_rad", "ms",
+                                                   "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms")}
                       for c in cases],
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,6 +14,19 @@ import torch
 MIN_CAPABILITY = (9, 0)
 
 
+def resolve(device) -> torch.device:
+    """The device an entry point runs on. The entry points default to
+    "cuda"; on a machine without a card that raises instead of silently
+    running the plain versions on the CPU (pass device="cpu" for those)."""
+    d = torch.device(device)
+    if d.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(d)!r} requested but CUDA is not available; "
+            "pass device='cpu' to run the plain PyTorch versions"
+        )
+    return d
+
+
 def use_kernel(*tensors: torch.Tensor) -> bool:
     """True when every tensor is on a Hopper-class CUDA device, False when
     every tensor is on the CPU; raises on mixed or unsupported devices."""

@@ -1,5 +1,6 @@
 """Geometric descriptor-matching routines (port of
-sdslam_tpu/features/matching.py, the searches of the RGB-D main path).
+sdslam_tpu/features/matching.py: the searches of RGB-D tracking,
+relocalization and loop closing).
 
 Each routine is a dense masked computation over fixed-capacity arrays:
 project -> geometric gating mask -> masked Hamming matrix (kernel K4) ->
@@ -119,3 +120,51 @@ def search_local_points(
         uv, p_desc, vis, kp_uv, kp_desc, kp_valid, radius, th_desc,
         q_octave=oct_pred, kp_octave=kp_octave, octave_window=(-1, 1), ratio=ratio,
     )
+
+
+def search_by_sim3(
+    cam: CameraModel,
+    S12,  # [4,4] Sim3 mapping cam-2 coordinates into cam-1
+    uv1, desc1, valid1, oct1, X1c,  # KF1 keypoints and bound points in its frame
+    uv2, desc2, valid2, oct2, X2c,  # KF2 likewise
+    radius_px: float = 7.5,
+    th_desc: int = ham.TH_HIGH,
+    scale_factor: float = 2.0,
+) -> MatchResult:
+    """Mutual Sim3-guided matching between two keyframes' bound points:
+    project each side's points into the other image through S12, window
+    match in both directions, keep the pairs both directions agree on.
+    Returns the KF2-keypoint -> KF1-keypoint assignment."""
+    # direction A: KF2 points into image 1 (targets: KF1 keypoints)
+    uvA, zA = cam_mod.project(cam, lie.sim3_apply(S12, X2c))
+    visA = valid2 & (zA > 0.05) & cam_mod.in_image(cam, uvA, 5.0)
+    rA = window_match(uvA, desc2, visA, uv1, desc1, valid1,
+                      radius_px * scale_factor ** oct2.to(torch.float32), th_desc,
+                      q_octave=oct2, kp_octave=oct1, octave_window=(-1, 1))
+    # direction B: KF1 points into image 2 (targets: KF2 keypoints)
+    uvB, zB = cam_mod.project(cam, lie.sim3_apply(lie.sim3_inv(S12), X1c))
+    visB = valid1 & (zB > 0.05) & cam_mod.in_image(cam, uvB, 5.0)
+    rB = window_match(uvB, desc1, visB, uv2, desc2, valid2,
+                      radius_px * scale_factor ** oct1.to(torch.float32), th_desc,
+                      q_octave=oct1, kp_octave=oct2, octave_window=(-1, 1))
+    j = rB.kp_to_query
+    N1 = desc1.shape[0]
+    back = rA.kp_to_query[torch.clamp(j, 0, N1 - 1).long()]
+    agree = (j >= 0) & (back == torch.arange(desc2.shape[0], device=j.device))
+    return MatchResult(torch.where(agree, j, torch.full_like(j, -1)),
+                       torch.where(agree, rB.kp_dist, torch.full_like(rB.kp_dist, ham.BIG)))
+
+
+def search_brute_force(q_desc, q_valid, t_desc, t_valid, th_desc: int = ham.TH_LOW,
+                       ratio: float = 0.75) -> MatchResult:
+    """Mutual brute-force descriptor matching with a ratio test
+    (SearchByPoints, the BoW-free loop and relocalization matcher).
+    Returns the target -> query assignment."""
+    mask = q_valid[:, None] & t_valid[None, :]
+    dist = ham.masked_dist(q_desc, t_desc, mask)
+    d1, j1, d2 = ham.best2(dist)
+    ok = q_valid & (d1 <= th_desc) & (d1.to(torch.float32) < ratio * d2.to(torch.float32))
+    # the target's own best query must point back (first minimum)
+    i1 = torch.argmin(dist, dim=0)
+    ok &= i1[j1] == torch.arange(q_desc.shape[0], device=dist.device)
+    return MatchResult(*ham.resolve_to_targets(j1, d1, ok, t_desc.shape[0]))

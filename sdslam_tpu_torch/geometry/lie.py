@@ -1,10 +1,11 @@
-"""SO(3) / SE(3) Lie-group math in PyTorch (float32, batched).
+"""SO(3) / SE(3) / Sim(3) Lie-group math in PyTorch (float32, batched).
 
-Port of sdslam_tpu/geometry/lie.py (SO3/SE3 part; Sim3 arrives with loop
-closing). Same conventions: poses are 4x4 Tcw, se3 tangent is
-[rho(3), phi(3)], exp uses the left Jacobian V(phi), quaternions are
-[w, x, y, z]. Every function broadcasts over leading batch dimensions and
-covers the full angle range (Taylor fallbacks near 0, axis recovery near pi).
+Port of sdslam_tpu/geometry/lie.py. Same conventions: poses are 4x4 Tcw,
+se3 tangent is [rho(3), phi(3)], exp uses the left Jacobian V(phi),
+quaternions are [w, x, y, z]; a Sim(3) element stores sR in the rotation
+block, its tangent is [rho(3), phi(3), sigma(1)] with s = exp(sigma).
+Every function broadcasts over leading batch dimensions and covers the
+full angle range (Taylor fallbacks near 0, axis recovery near pi).
 """
 
 from __future__ import annotations
@@ -201,3 +202,90 @@ def se3_apply(T, X):
 def se3_normalize(T):
     """Re-orthonormalize the rotation block (drift control in f32)."""
     return se3_from_Rt(quat_to_mat(mat_to_quat(se3_R(T))), se3_t(T))
+
+
+# ---------------------------------------------------------------------------
+# Sim(3)
+# ---------------------------------------------------------------------------
+
+def _det3(A):
+    """Determinant of [...,3,3] by cofactors (no LU: exact branch-free f32)."""
+    return (A[..., 0, 0] * (A[..., 1, 1] * A[..., 2, 2] - A[..., 1, 2] * A[..., 2, 1])
+            - A[..., 0, 1] * (A[..., 1, 0] * A[..., 2, 2] - A[..., 1, 2] * A[..., 2, 0])
+            + A[..., 0, 2] * (A[..., 1, 0] * A[..., 2, 1] - A[..., 1, 1] * A[..., 2, 0]))
+
+
+def sim3_from_Rts(R, t, s):
+    """Similarity [...,4,4] storing sR in the rotation block."""
+    return se3_from_Rt(R * s[..., None, None], t)
+
+
+def sim3_Rts(S):
+    """Decompose a stacked sim3 matrix -> (R, t, s)."""
+    A = S[..., :3, :3]
+    s = torch.pow(torch.clamp(_det3(A), min=_EPS), 1.0 / 3.0)
+    return A / s[..., None, None], S[..., :3, 3], s
+
+
+def sim3_inv(S):
+    R, t, s = sim3_Rts(S)
+    Rt = R.transpose(-1, -2)
+    sinv = 1.0 / s
+    return sim3_from_Rts(Rt, -sinv[..., None] * _mv(Rt, t), sinv)
+
+
+def sim3_apply(S, X):
+    return _mv(S[..., :3, :3], X) + S[..., :3, 3]
+
+
+def _sim3_W(phi, sigma):
+    """The sim3 'V' matrix coupling (rho, phi, sigma) -> translation
+    (Strasdat's closed form, with the JAX package's small-angle and
+    small-sigma branches)."""
+    theta2 = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(torch.clamp(theta2, min=0.0))
+    s = torch.exp(sigma)
+    K = hat(phi)
+    K2 = _mm(K, K)
+    eps_sig = torch.abs(sigma) < 1e-5
+    eps_th = theta < 1e-5
+    one = torch.ones_like(sigma)
+    A_sig = torch.where(eps_sig, torch.zeros_like(sigma),
+                        (s - 1.0) / torch.where(eps_sig, one, sigma))
+    C = torch.where(eps_sig, one, A_sig)
+    sig2th2 = sigma * sigma + theta2
+    a_gen = (s * torch.sin(theta) * sigma + (1.0 - s * torch.cos(theta)) * theta) / torch.clamp(
+        theta * sig2th2, min=_EPS)
+    b_gen = (C - ((s * torch.cos(theta) - 1.0) * sigma + s * torch.sin(theta) * theta)
+             / torch.clamp(sig2th2, min=_EPS)) / torch.clamp(theta2, min=_EPS)
+    a_th0 = torch.where(eps_sig, 0.5 * one,
+                        ((sigma - 1.0) * s + 1.0) / torch.clamp(sigma * sigma, min=_EPS))
+    b_th0 = torch.where(eps_sig, one / 6.0,
+                        (s * 0.5 * sigma * sigma + s - 1.0 - sigma * s)
+                        / torch.clamp(sigma * sigma * sigma, min=_EPS))
+    A = torch.where(eps_th, a_th0, a_gen)
+    B = torch.where(eps_th, b_th0, b_gen)
+    return C[..., None, None] * _eye3(K) + A[..., None, None] * K + B[..., None, None] * K2
+
+
+def sim3_exp(xi):
+    """[...,7] (rho, phi, sigma) -> [...,4,4] with sR block."""
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    return sim3_from_Rts(so3_exp(phi), _mv(_sim3_W(phi, sigma), rho), torch.exp(sigma))
+
+
+def sim3_log(S):
+    R, t, s = sim3_Rts(S)
+    phi = so3_log(R)
+    sigma = torch.log(s)
+    rho = torch.linalg.solve_ex(_sim3_W(phi, sigma), t[..., None])[0][..., 0]
+    return torch.cat([rho, phi, sigma[..., None]], dim=-1)
+
+
+def se3_to_sim3(T):
+    return T  # scale 1 embeds directly
+
+
+def sim3_to_se3(S):
+    R, t, _ = sim3_Rts(S)
+    return se3_from_Rt(R, t)

@@ -5,8 +5,13 @@ arrays (the map is this system's "weights").
 `{k: np.asarray(v) for k, v in ms._asdict().items()}`, kf_pyramid as a
 tuple/list of arrays) and builds the port's MapState; uint32 descriptors
 become int32 bit patterns. `map_state_to_numpy` goes back, descriptors as
-uint32. The same pair exists for EKFState and DeviceState (the JAX
-DeviceState's IMU filter has no counterpart here and is dropped).
+uint32. The same pair exists for EKFState, DeviceState (the JAX
+DeviceState's IMU filter has no counterpart here and is dropped) and the
+loop closer's ConsistencyState.
+
+These are test-side converters: their `device` defaults to "cpu", where
+the tests compare the port with the JAX package, unlike the port's entry
+points, which default to the card.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ import numpy as np
 import torch
 
 from sdslam_tpu_torch.mapping.map_state import MapState
+from sdslam_tpu_torch.pipeline.loop_closing import ConsistencyState
 from sdslam_tpu_torch.pipeline.sensors import EKFState
 from sdslam_tpu_torch.pipeline.tracking import DeviceState
 
@@ -78,3 +84,14 @@ def device_state_to_numpy(s: DeviceState) -> dict:
     out = {f: _to_numpy(v) for f, v in s._asdict().items() if f != "ekf"}
     out["ekf"] = ekf_state_to_numpy(s.ekf)
     return out
+
+
+def consistency_state_from_numpy(d: Mapping, device="cpu") -> ConsistencyState:
+    """d: the JAX ConsistencyState's fields (mask [K,K] bool, count [K])."""
+    if hasattr(d, "_asdict"):
+        d = d._asdict()
+    return ConsistencyState(**{f: _to_torch(d[f], device) for f in ConsistencyState._fields})
+
+
+def consistency_state_to_numpy(s: ConsistencyState) -> dict:
+    return {f: _to_numpy(v) for f, v in s._asdict().items()}

@@ -13,6 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from sdslam_tpu_torch import _device
 from sdslam_tpu_torch.geometry import lie
 from sdslam_tpu_torch.geometry.camera import CameraModel
 
@@ -150,6 +151,19 @@ def orbit_trajectory(n_frames: int, radius: float = 0.4, yaw_amp: float = 0.12, 
     return torch.as_tensor(np.stack(poses))
 
 
+def circuit_trajectory(n_frames: int, radius: float = 0.8):
+    """Closed circuit: the camera walks a full circle heading along the
+    tangent, so yaw sweeps 360 deg and each segment sees another part of
+    the room (use with make_room_scene(closed=True)). Starts at the origin
+    looking +z; circle center at (radius, 0, 0)."""
+    poses = []
+    for i in range(n_frames):
+        th = 2 * np.pi * i / n_frames
+        c = np.array([radius * (1 - np.cos(th)), 0.0, radius * np.sin(th)], np.float32)
+        poses.append(_pose_from_center(c, np.array([0.0, th, 0.0], np.float32)))
+    return torch.as_tensor(np.stack(poses))
+
+
 def forward_trajectory(n_frames: int, step: float = 0.02, yaw_rate: float = 0.0):
     """Straight-ish dolly forward, constant velocity."""
     poses = [
@@ -174,11 +188,11 @@ class SyntheticSequence:
         seed: int = 0,
         fps: float = 30.0,
         scene_kwargs: dict = None,
-        device="cpu",
+        device="cuda",
         **traj_kwargs,
     ):
         self.cam = cam
-        self.device = torch.device(device)
+        self.device = _device.resolve(device)
         self.scene = make_room_scene(seed=seed, **(scene_kwargs or {})).to(self.device)
         if trajectory == "orbit":
             self.poses = orbit_trajectory(n_frames, **traj_kwargs)

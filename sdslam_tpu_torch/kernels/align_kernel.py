@@ -43,6 +43,14 @@ def align_level_plain(img, X_ref, ref_patch, J, okpx, Hinv, T_init,
                       fx: float, fy: float, cx: float, cy: float, iters: int = 30):
     """Returns (T [4,4], chi2 f32, n_px i32): GN iterations with chi2
     rollback, stopping on |delta| < 1e-7 or a chi2 rise."""
+    return align_level_steps(img, X_ref, ref_patch, J, okpx, Hinv, T_init,
+                             fx, fy, cx, cy, iters)[:3]
+
+
+def align_level_steps(img, X_ref, ref_patch, J, okpx, Hinv, T_init,
+                      fx: float, fy: float, cx: float, cy: float, iters: int = 30):
+    """align_level_plain and the number of GN iterations it ran (the kernel
+    runs the same ones; chip_smoke.py counts its work by them)."""
     T = T_init
     best_T = T
     best = torch.full((), float("inf"), device=img.device)
@@ -60,7 +68,7 @@ def align_level_plain(img, X_ref, ref_patch, J, okpx, Hinv, T_init,
         it += 1
     _, chi2_T, n_T = gn_terms(img, X_ref, ref_patch, J, okpx, T, fx, fy, cx, cy)
     T_out = torch.where(chi2_T <= best, T, best_T)
-    return T_out, torch.minimum(chi2_T, best), n_T
+    return T_out, torch.minimum(chi2_T, best), n_T, it
 
 
 def align_level(img, X_ref, ref_patch, J, okpx, Hinv, T_init,

@@ -18,6 +18,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from sdslam_tpu_torch import _device
 from sdslam_tpu_torch._util import as_device, put, scatter_min, scatter_set, scatter_set2, take
 from sdslam_tpu_torch.geometry import lie
 from sdslam_tpu_torch.kernels.hamming_kernel import _popcount32
@@ -84,9 +85,9 @@ class MapState(NamedTuple):
 
 def init_map(max_keyframes: int, max_points: int, max_kps: int,
              pyramid_shapes: Tuple[Tuple[int, int], ...], max_loop_edges: int = 32,
-             device="cpu") -> MapState:
+             device="cuda") -> MapState:
     K, P, N = max_keyframes, max_points, max_kps
-    d = torch.device(device)
+    d = _device.resolve(device)
     f32, i32 = torch.float32, torch.int32
 
     def full(shape, v, dt):
@@ -441,6 +442,17 @@ def remove_keyframes(ms: MapState, kill_mask, covis=None) -> MapState:
         kf_mp=torch.where(kill_mask[:, None], torch.full_like(ms.kf_mp, -1), ms.kf_mp),
         kf_parent=kf_parent, pt_ref_kf=pt_ref_kf, loop_edges=loop_edges,
     )
+
+
+def add_loop_edge(ms: MapState, i, j) -> MapState:
+    """Record a persistent loop edge (KeyFrame::AddLoopEdge) in the first
+    free row; dropped when the fixed-capacity store is full."""
+    free = ms.loop_edges[:, 0] < 0
+    L = ms.loop_edges.shape[0]
+    slot = torch.where(free.any(), torch.argmax(free.to(torch.int32)), L)
+    pair = torch.stack([as_device(i, torch.int32, ms.device).reshape(()),
+                        as_device(j, torch.int32, ms.device).reshape(())])
+    return ms._replace(loop_edges=scatter_set(ms.loop_edges, slot.reshape(1), pair[None]))
 
 
 def replace_points(ms: MapState, replace_map) -> MapState:

@@ -7,6 +7,7 @@ from sdslam_tpu_torch.ops import sample as _s
 
 
 def bilinear_sample_with_grad(img, uv):
-    """Sample value and central-difference gradient at uv [...,2].
-    Returns (val, gx, gy, valid); the gradient support needs a 1px margin."""
+    """Sample value and central-difference gradient at uv [...,2] (img
+    [H,W], or [B,H,W] with uv [B,...,2]). Returns (val, gx, gy, valid); the
+    gradient support needs a 1px margin."""
     return _s.sample_bilinear_with_grad(img, uv)

@@ -58,19 +58,27 @@ def sample_bilinear_patch(img, uv_center, patch_half: int = 2):
 
 def sample_bilinear_with_grad(img, uv):
     """Bilinear value + central-difference gradient at uv [...,2].
-    Returns (val, gx, gy, valid); the 5-sample cross needs a 1px margin."""
-    H, W = img.shape
+    Returns (val, gx, gy, valid); the 5-sample cross needs a 1px margin.
+
+    img [H,W], or a batch [B,H,W] with uv [B,...,2]: lane b samples img[b]
+    (the gather carries a batch offset, as jax.vmap of the 2-D form)."""
+    H, W = img.shape[-2:]
     shp = uv.shape[:-1]
     _, wx, x0i = _floor_split(uv[..., 0].reshape(-1))
     _, wy, y0i = _floor_split(uv[..., 1].reshape(-1))
     valid = (x0i >= 1) & (x0i < W - 2) & (y0i >= 1) & (y0i < H - 2)
     x0c = torch.clamp(x0i, 0, W - 2)
     y0c = torch.clamp(y0i, 0, H - 2)
+    flat = img.reshape(-1)
+    base = 0
+    if img.dim() == 3:
+        lane = torch.arange(img.shape[0], device=img.device) * (H * W)
+        base = lane.reshape((-1,) + (1,) * (len(shp) - 1)).expand(shp).reshape(-1)
 
     def at(dy, dx):
         yy = torch.clamp(y0c + dy, 0, H - 1)
         xx = torch.clamp(x0c + dx, 0, W - 1)
-        return img[yy, xx]
+        return flat[base + yy * W + xx]
 
     def rowval(dy, dx):  # y-blend of rows (dy, dy+1) at column offset dx
         return (1.0 - wy) * at(dy, dx) + wy * at(dy + 1, dx)

@@ -12,7 +12,8 @@ The JAX package runs this as one jitted program with lax.cond branches;
 PyTorch runs eagerly, so the keyframe decision and the keyframe-culling
 gate are Python branches, each one device->host sync. Every other decision
 stays on the device (torch.where). The tracker counts its host syncs.
-Relocalization (the LOST state) is not ported yet and raises.
+A LOST tracker relocalizes against the whole keyframe pool
+(pipeline/relocalization.py: kernel K5, then K4 and K2) on its next frame.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from sdslam_tpu_torch import _device
 from sdslam_tpu_torch._util import scatter_set, take, topk_stable
 from sdslam_tpu_torch.features import matching
 from sdslam_tpu_torch.features.frame import Frame, ORBExtractor, make_frame
@@ -34,6 +36,7 @@ from sdslam_tpu_torch.mapping import local_mapping as LM
 from sdslam_tpu_torch.mapping import map_state as M
 from sdslam_tpu_torch.ops import hamming as ham
 from sdslam_tpu_torch.pipeline import sensors
+from sdslam_tpu_torch.pipeline.relocalization import relocalize
 from sdslam_tpu_torch.solvers import ba, image_align, pose_opt
 from sdslam_tpu_torch.utils.config import SystemConfig
 
@@ -265,12 +268,15 @@ class RGBDTracker:
 
     PIPELINE_DEPTH = 4
     LOST_PATIENCE = 1
-    TH_RADIUS = 3.0  # TrackLocalMap search radius for RGB-D
+    # TrackLocalMap search radius: 3 for RGB-D, 5 for the 2 frames after a
+    # relocalization (Tracking.cc:926-937)
+    TH_RADIUS = 3.0
+    TH_RADIUS_RELOC = 5.0
 
-    def __init__(self, cfg: SystemConfig, device="cpu"):
+    def __init__(self, cfg: SystemConfig, device="cuda"):
         self.cfg = cfg
         self.cam = cam = cfg.camera
-        self.device = torch.device(device)
+        self.device = _device.resolve(device)
         self.extractor = ORBExtractor(cam, cfg.orb)
         shapes = []
         h, w = cam.height, cam.width
@@ -282,6 +288,9 @@ class RGBDTracker:
                              tuple(shapes), device=self.device)
         self.st = TrackerState()
         self.dst: Optional[DeviceState] = None
+        self.mapping_enabled = True  # False = localization-only mode
+        self._reloc_boost_until = -1  # frame id bound of the TH_RADIUS_RELOC window
+        self._reloc_seed = 0
         self.trajectory: List = []
         self.timestamps: List[float] = []
         self.close_depth = cam.bf * cfg.tracking.th_depth / cam.fx if cam.bf > 0 else float("inf")
@@ -349,7 +358,7 @@ class RGBDTracker:
         decayed = n_inl.to(torch.float32) < 0.9 * dst.ref_kf_inliers.to(torch.float32)
         need_kf_d = (track_ok & (n_inl >= 20) & (~ms.kf_valid).any() & (fskf >= 2)
                      & (decayed | (fskf >= kf_interval)))
-        need_kf = self._sync(need_kf_d)
+        need_kf = self.mapping_enabled and self._sync(need_kf_d)
         if need_kf:
             close = self.close_depth if np.isfinite(self.close_depth) else 1e9
             ms, slot, _, Tcw_fin = _kf_core(
@@ -420,7 +429,8 @@ class RGBDTracker:
             self.kf_events.append(slot)
         if n_inl < 10:
             self._lost_streak += 1
-            if self._lost_streak >= self.LOST_PATIENCE:
+            # localization mode relocalizes at once (no map to damage)
+            if self._lost_streak >= self.LOST_PATIENCE or not self.mapping_enabled:
                 self.st.status = "LOST"
         else:
             self._lost_streak = 0
@@ -433,6 +443,19 @@ class RGBDTracker:
             self._drain_one()
 
     # -- host API ------------------------------------------------------------
+
+    def reset_reference(self, slot: int):
+        """Re-anchor tracking after an external map update (loop closure):
+        new reference keyframe, motion filter restarted from its pose."""
+        self.flush()
+        T = self.ms.kf_Tcw[int(slot)]
+        self.st.last_kf_slot = int(slot)
+        self.st.T_last = T.cpu().numpy()
+        if self.dst is not None:
+            self.dst = self.dst._replace(
+                ekf=sensors.ekf_init(T),
+                last_kf_slot=torch.full((), int(slot), dtype=torch.int32, device=self.device),
+            )
 
     def _free_kf_slot(self) -> int:
         free = np.flatnonzero(~self.ms.kf_valid.cpu().numpy())
@@ -495,15 +518,17 @@ class RGBDTracker:
             self.st.frame_id += 1
             return self.trajectory[-1]
         if self.st.status == "LOST":
-            raise NotImplementedError("relocalization is not ported yet")
+            return self._relocalize_step(img, depth_img, timestamp)
+        th_radius = (self.TH_RADIUS_RELOC if self.st.frame_id < self._reloc_boost_until
+                     else self.TH_RADIUS)
         if (isinstance(img, np.ndarray) and isinstance(depth_img, np.ndarray)
                 and img.dtype == np.uint8 and depth_img.dtype == np.uint16):
             buf = self._as_device(pack_frame(img, depth_img, self._rel_ts(timestamp)))
-            packed, T_report, frame = self._run_frame(self._step_packed, buf, self.TH_RADIUS)
+            packed, T_report, frame = self._run_frame(self._step_packed, buf, th_radius)
         else:
             ts = torch.full((), self._rel_ts(timestamp), device=self.device)
             packed, T_report, frame = self._run_frame(
-                self._step, self._as_device(img), self._as_device(depth_img), ts, self.TH_RADIUS)
+                self._step, self._as_device(img), self._as_device(depth_img), ts, th_radius)
         self.trajectory.append(T_report)
         self.timestamps.append(timestamp)
         self._pending.append((len(self.trajectory) - 1, packed))
@@ -562,3 +587,43 @@ class RGBDTracker:
         while len(self._pending) > self.PIPELINE_DEPTH:
             self._drain_one()
         return list(range(idx0, idx0 + len(rest)))
+
+    def _relocalize_step(self, img, depth_img, timestamp: float):
+        """Recovery against every keyframe (Tracking.cc:1064-1097): one
+        batched alignment, then verification; one packed host read of the
+        outcome per lost frame."""
+        self.flush()
+        st = self.st
+        frame = make_frame(self.extractor, self._as_device(img),
+                           depth_img=self._as_device(depth_img),
+                           depth_factor=self.cfg.tracking.depth_map_factor)
+        f = frame.features
+        self._reloc_seed += 1
+        gen = torch.Generator(device=self.device).manual_seed(self._reloc_seed)
+        rr = relocalize(self.cam, self.ms, f.uv_und, f.desc, f.octave, f.valid, frame.uright,
+                        frame.pyramid, generator=gen, scale_factor=self.cfg.orb.scale_factor,
+                        n_levels=self.cfg.orb.n_levels, store_min_level=KF_STORE_MIN_LEVEL)
+        f32 = torch.float32
+        self.host_syncs += 1
+        p = torch.cat([torch.stack([rr.success.to(f32), rr.best_kf.to(f32),
+                                    (rr.assoc >= 0).sum().to(f32)]),
+                       rr.Tcw.reshape(16)]).cpu().numpy()
+        if p[0] > 0:
+            st.status = "OK"
+            st.last_kf_slot = int(p[1])
+            st.last_assoc = rr.assoc
+            st.T_last = p[3:].reshape(4, 4)
+            st.last_frame = frame._replace(Tcw=rr.Tcw)
+            st.frames_since_kf = 0
+            st.ref_kf_inliers = max(int(p[2]), 1)
+            self._lost_streak = 0
+            # wider local-map search for the next 2 frames
+            # (mnLastRelocFrameId window, Tracking.cc:934-936)
+            self._reloc_boost_until = st.frame_id + 1 + 2
+            self._start_device_state(st.last_kf_slot, rr.Tcw, timestamp)
+        # while lost, report the last known pose
+        st.frame_id += 1
+        st.last_ts = timestamp
+        self.trajectory.append(np.array(st.T_last))
+        self.timestamps.append(timestamp)
+        return self.trajectory[-1]

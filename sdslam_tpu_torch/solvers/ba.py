@@ -1,5 +1,5 @@
 """Bundle adjustment with Schur-complement elimination of landmarks
-(port of sdslam_tpu/solvers/ba.py: the local-BA path).
+(port of sdslam_tpu/solvers/ba.py: local BA and global BA).
 
 Edges live in observation-major [Mo, P] planes. Per LM iteration the edge
 pass, the per-point 3x3 elimination and the per-camera Schur-factor scatter
@@ -320,3 +320,24 @@ def local_ba(cam: CameraModel, ms: M.MapState, center_kf, scale_factor: float = 
     bad = obs_ok & ~obs_in
     kf_mp = scatter_set2(ms.kf_mp, torch.where(bad, c_orig, K), kp_s, -1)
     return ms._replace(kf_Tcw=kf_Tcw, pt_pos=pt_pos, kf_mp=kf_mp)
+
+
+def apply_ba_result(ms: M.MapState, res: BAResult, obs_kf, obs_kp) -> M.MapState:
+    """Write a BA result back into the map and erase the observations it
+    flagged as outliers (obs_kf, obs_kp: the observation lists BA ran on)."""
+    bad = (obs_kf >= 0) & ~res.obs_inlier
+    kf_mp = scatter_set2(ms.kf_mp, torch.where(bad, obs_kf, ms.K),
+                         torch.clamp(obs_kp, 0, ms.N - 1), -1)
+    return ms._replace(kf_Tcw=res.kf_Tcw, pt_pos=res.pt_pos, kf_mp=kf_mp)
+
+
+def global_ba(cam: CameraModel, ms: M.MapState, fixed_kf: int = 0, scale_factor: float = 2.0,
+              iters: int = 10, max_obs: int = 16) -> M.MapState:
+    """Full-map BA with one gauge-fixing keyframe slot. At K > ZT_MAX_K
+    keyframe slots, K3 runs its emit_zt=False branch."""
+    cam_active = ms.kf_valid & (torch.arange(ms.K, device=ms.device) != fixed_kf)
+    obs_kf, obs_kp = M.build_obs_lists(ms, max_obs)
+    res = bundle_adjust(cam, ms, cam_active, ms.pt_valid, scale_factor=scale_factor,
+                        iters1=iters // 2, iters2=iters, max_obs=max_obs, obs_kf=obs_kf,
+                        obs_kp=obs_kp)
+    return apply_ba_result(ms, res, obs_kf, obs_kp)

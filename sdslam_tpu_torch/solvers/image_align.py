@@ -2,10 +2,15 @@
 (port of sdslam_tpu/solvers/image_align.py).
 
 Reference patches (4x4) and their 6-DoF Jacobians are cached at each
-pyramid level; the Gauss-Newton loop of a level runs in kernel K1
-(kernels/align_kernel.py: one launch per level on the card, the plain loop
-on the CPU). Levels run coarse to fine; `start_level` says which pyramid
-level entry 0 of the tuples is (keyframes store levels >= 2).
+pyramid level. `align` (one reference, the tracker) runs a level's whole
+Gauss-Newton loop in kernel K1 (kernels/align_kernel.py: one launch per
+level on the card, the plain loop on the CPU). `align_batched` (B
+references against one current pyramid: relocalization and loop
+detection, the JAX package's jax.vmap of the non-fused aligner) computes
+each iteration's right-hand side for all lanes in kernel K5
+(kernels/accumulate_gn_kernel.py). Levels run coarse to fine;
+`start_level` says which pyramid level entry 0 of the tuples is
+(keyframes store levels >= 2).
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from sdslam_tpu_torch.geometry import lie
+from sdslam_tpu_torch.kernels import accumulate_gn_kernel as gk
 from sdslam_tpu_torch.kernels import align_kernel as ak
 from sdslam_tpu_torch.ops import interp
 
@@ -47,22 +54,29 @@ def _proj_jac_se3(Xc, fx, fy):
 
 
 def _precompute_level(ref_img, uv_ref_l, X_ref, valid, fx_l, fy_l):
-    """(ref_patch [N,16], J [N,16,6], valid_px [N,16]) at one level."""
-    uv = uv_ref_l[:, None, :] + _patch_offsets(ref_img.device)[None]
+    """(ref_patch [...,N,16], J [...,N,16,6], valid_px [...,N,16]) at one
+    level; ref_img [H,W] with [N] points, or [B,H,W] with [B,N] points."""
+    uv = uv_ref_l[..., None, :] + _patch_offsets(ref_img.device)
     val, gx, gy, ok = interp.bilinear_sample_with_grad(ref_img, uv)
     Jproj = _proj_jac_se3(X_ref, fx_l, fy_l)
-    J = gx[..., None] * Jproj[:, None, 0, :] + gy[..., None] * Jproj[:, None, 1, :]
-    return val, J / 255.0, ok & valid[:, None]
+    J = gx[..., None] * Jproj[..., None, 0, :] + gy[..., None] * Jproj[..., None, 1, :]
+    return val, J / 255.0, ok & valid[..., None]
+
+
+def _damped_cholesky(J, ok, lm_lambda: float = 1e-5):
+    """Cholesky factor [...,6,6] of the IC-LK Hessian with the JAX loop's
+    trace-scaled damping (H is constant over a level's iterations)."""
+    Jm = torch.where(ok[..., None], J, torch.zeros_like(J))
+    H = torch.einsum("...npi,...npj->...ij", Jm, J)
+    eye = torch.eye(6, device=J.device)
+    tr = torch.diagonal(H, dim1=-2, dim2=-1).sum(-1)
+    Hr = H + lm_lambda * eye * torch.clamp(tr / 6.0, min=1e-8)[..., None, None]
+    return torch.linalg.cholesky_ex(Hr)[0]
 
 
 def damped_hessian_inverse(J, ok, lm_lambda: float = 1e-5):
-    """Inverse of the IC-LK Hessian with the trace-scaled damping of the
-    JAX loop (H is constant over a level's iterations)."""
-    H = torch.einsum("npi,npj->ij", torch.where(ok[..., None], J, torch.zeros_like(J)), J)
-    eye = torch.eye(6, device=J.device)
-    Hr = H + lm_lambda * eye * torch.clamp(torch.trace(H) / 6.0, min=1e-8)
-    L, _ = torch.linalg.cholesky_ex(Hr)
-    return torch.cholesky_solve(eye, L)
+    """Inverse of the damped IC-LK Hessian of one lane (K1 applies it)."""
+    return torch.cholesky_solve(torch.eye(6, device=J.device), _damped_cholesky(J, ok, lm_lambda))
 
 
 def align(
@@ -95,5 +109,75 @@ def align(
             cur_img.contiguous(), X_ref.contiguous(), patch.contiguous(), J.contiguous(),
             ok.contiguous(), Hinv.contiguous(), T.contiguous(),
             fx * s, fy * s, cx * s, cy * s, iters,
+        )
+    return AlignResult(T, chi2, n)
+
+
+def _align_level_batched(cur_img, T, X_ref, ref_patch, J, ok, fx, fy, cx, cy, iters: int):
+    """The non-fused GN loop of one level for B lanes at once: K5 per
+    iteration, a damped 6x6 solve per lane. A vmapped lax.while_loop runs
+    until every lane stops and freezes the lanes that did; here the fixed
+    `iters` run with a per-lane `active` mask (no host sync per iteration).
+    Returns (T [B,4,4], chi2 [B], n_px [B] int32)."""
+    L = _damped_cholesky(J, ok)
+    B = X_ref.shape[0]
+    dev = X_ref.device
+
+    def terms(T):
+        Xc = lie.se3_apply(T[:, None], X_ref).contiguous()
+        b, chi_sum, n = gk.accumulate_gn(cur_img, Xc, ref_patch, J, ok, fx, fy, cx, cy)
+        n = torch.clamp(n, min=1)
+        return b, chi_sum / n, n
+
+    best_T = T
+    best = torch.full((B,), float("inf"), device=dev)
+    active = torch.ones((B,), dtype=torch.bool, device=dev)
+    for it in range(iters):
+        b, chi2, _ = terms(T)
+        improved = chi2 < best
+        best_T = torch.where((active & improved)[:, None, None], T, best_T)
+        best = torch.where(active, torch.minimum(chi2, best), best)
+        delta = torch.cholesky_solve(b[..., None], L)[..., 0]
+        T_next = T @ lie.se3_exp(-delta)
+        stop = (delta.abs().amax(-1) < 1e-7) | ((it > 0) & ~improved)
+        T = torch.where(active[:, None, None], T_next, T)
+        active = active & ~stop
+    # the last iterate was never chi2-evaluated inside the loop
+    _, chi2_T, n_T = terms(T)
+    T_out = torch.where((chi2_T <= best)[:, None, None], T, best_T)
+    return T_out, torch.minimum(chi2_T, best), n_T
+
+
+def align_batched(
+    ref_pyramids: Tuple[torch.Tensor, ...],  # per stored level: [B, H_l, W_l]
+    cur_pyramid: Tuple[torch.Tensor, ...],  # per stored level: [H_l, W_l]
+    uv_ref,  # [B,N,2] keypoint coords at level-0 scale
+    X_ref,  # [B,N,3] points in each reference camera frame
+    valid,  # [B,N] bool
+    T_cur_ref_init,  # [B,4,4] or [4,4]
+    fx: float, fy: float, cx: float, cy: float,
+    scale_factor: float = 2.0,
+    max_level: int = 4,
+    min_level: int = 2,
+    iters: int = 30,
+    start_level: int = 0,
+) -> AlignResult:
+    """`align` of B references against one current pyramid (the JAX
+    package's jax.vmap of the non-fused aligner). Returns an AlignResult of
+    [B]-batched fields."""
+    B = X_ref.shape[0]
+    T = torch.broadcast_to(T_cur_ref_init, (B, 4, 4)).to(torch.float32)
+    chi2 = torch.zeros((B,), device=X_ref.device)
+    n = torch.zeros((B,), dtype=torch.int32, device=X_ref.device)
+    max_level = min(max_level, len(ref_pyramids) - 1 + start_level)
+    min_level = max(min_level, start_level)
+    for lvl in range(max_level, min_level - 1, -1):
+        s = 1.0 / (scale_factor**lvl)
+        ref_img = ref_pyramids[lvl - start_level]
+        cur_img = cur_pyramid[lvl - start_level]
+        patch, J, ok = _precompute_level(ref_img, uv_ref * s, X_ref, valid, fx * s, fy * s)
+        T, chi2, n = _align_level_batched(
+            cur_img.contiguous(), T, X_ref, patch.contiguous(), J.contiguous(),
+            ok.contiguous(), fx * s, fy * s, cx * s, cy * s, iters,
         )
     return AlignResult(T, chi2, n)

@@ -74,7 +74,7 @@ def scripted():
     X = rng.uniform([-1, -0.8, 1.5], [1, 0.8, 3.5], size=(120, 3)).astype(np.float32)
     pt_desc = rng.integers(0, 2**32, size=(120, 8), dtype=np.uint64).astype(np.uint32)
     jms = JM.init_map(K, P, N, PYR)
-    tms = TM.init_map(K, P, N, PYR)
+    tms = TM.init_map(K, P, N, PYR, device="cpu")
     steps = [("init", jms, tms)]
     ids_of = {}  # scene point index -> map point id
     for k in range(4):

@@ -25,7 +25,8 @@ def test_scene_parameters_identical():
                                            ("forward", dict(step=0.01))])
 def test_render_parity(trajectory, kw):
     js = jsyn.SyntheticSequence(JCam(**CAM), n_frames=16, trajectory=trajectory, **kw)
-    ts_ = tsyn.SyntheticSequence(TCam(**CAM), n_frames=16, trajectory=trajectory, **kw)
+    ts_ = tsyn.SyntheticSequence(TCam(**CAM), n_frames=16, trajectory=trajectory,
+                                device="cpu", **kw)
     # ground-truth poses: same float32 trajectory recipe
     np.testing.assert_allclose(np.asarray(js.poses), ts_.poses.numpy(), atol=1e-6)
     for i in (0, 9):

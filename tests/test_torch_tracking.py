@@ -90,7 +90,7 @@ def jax_runs():
 def port_runs(jax_runs):
     out = {}
     for name, j in jax_runs.items():
-        tp = tt.RGBDTracker(port_cfg())
+        tp = tt.RGBDTracker(port_cfg(), device="cpu")
         for ts, img, dep in j["frames"]:
             tp.track(img, dep, ts)
         tp.flush()
@@ -101,7 +101,7 @@ def port_runs(jax_runs):
 def test_one_step_on_carried_state(jax_runs):
     j = jax_runs["orbit"]
     ms_np, dst_np = j["snap"]
-    tp = tt.RGBDTracker(port_cfg())
+    tp = tt.RGBDTracker(port_cfg(), device="cpu")
     tp.ms = interop.map_state_from_numpy(ms_np)
     tp.dst = interop.device_state_from_numpy(dst_np)
     back = interop.device_state_to_numpy(tp.dst)
@@ -150,11 +150,11 @@ def test_track_batch_matches_per_frame(jax_runs):
     cfg = port_cfg()
     cfg = tcfg.SystemConfig(camera=cfg.camera, orb=cfg.orb, map=cfg.map,
                             tracking=tcfg.TrackingConfig(depth_map_factor=1000.0))
-    t1 = tt.RGBDTracker(cfg)
+    t1 = tt.RGBDTracker(cfg, device="cpu")
     for img, dep, ts in frames:
         t1.track(img, dep, ts)
     t1.flush()
-    t2 = tt.RGBDTracker(cfg)
+    t2 = tt.RGBDTracker(cfg, device="cpu")
     t2.track_batch(frames[:5])  # initialization falls back to track()
     t2.track_batch(frames[5:], uploaded=t2.upload_batch(frames[5:]))
     t2.flush()
