@@ -21,9 +21,15 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
   6. loop     SDSlamSystem with loop closing on the organic circuit (a
               closed 3.5 m room, 240 + 40 frames, depth-scale drift): a
               correction with global BA must fire and lower the keyframe ATE
+  7. mono     the monocular SDSlamSystem (loop closing on) at the default
+              configuration on a 32-frame orbit: two-view bootstrap within
+              the first frames, then tracking and mapping; Sim3-aligned ATE
+  8. fusion   the monocular + IMU SDSlamSystem on a jerky direction-
+              reversing sequence with gyro and accelerometer synthesized
+              from the ground truth; the device IMU filter must follow
 Then the kernel table as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Launch counters are set to 0 before each of
-phases 4-6 and read after it.
+phases 4-8 and read after it.
 
 It imports nothing from JAX or the JAX package and never runs on the CPU.
 """
@@ -92,6 +98,12 @@ POSE_RESID_FLOP = 40  # the residual-only pass closing each round
 BA_EDGE_FLOP = 450  # Jc/Jp, W, Hcc, bc, Hpp, bp and the V.ybp terms of one edge
 BA_POINT_FLOP = 150  # 3x3 damped Cholesky inverse, ybp and Ze per point
 HAMMING_OPS_PER_WORD = 3  # xor, popcount, add
+BA_EDGE_TERMS_FLOP = 460  # projection, residual, Huber, Jc/Jp and the 55 outputs of one edge
+
+
+def chol_flop(N: int) -> float:
+    """Factor (N^3 / 3) and the two triangular solves (2 N^2 each)."""
+    return N**3 / 3.0 + 4.0 * N**2
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -451,6 +463,79 @@ def phase_kernels(dev):
     emit("kernel", name="accumulate_gn",
          tol="n_px equal, chi2_sum 1e-4 rel, b per channel 1e-4", cases=cases)
     rows["accumulate_gn"] = cases
+
+    # K6: x within rtol 2e-4 / atol 2e-5 of the plain version (the library
+    # factor and solve, which is also the library yardstick) and a relative
+    # residual |Sx - b| / |b| <= 1e-4, at the kernel's largest N and at
+    # local BA's [144, 144] (last: the kernel table's row)
+    from sdslam_tpu_torch.kernels import chol_kernel as ck
+
+    cases = []
+    for N in (ck.N_MAX, 144):
+        g = torch.Generator(device="cpu").manual_seed(SEED + 5 + N)
+        A = torch.randn(N, N, generator=g)
+        S = (A @ A.T + N * torch.eye(N)).to(dev).contiguous()
+        b = torch.randn(N, generator=g).to(dev)
+        x = ck.chol_solve_dense(S, b)
+        xp = ck.chol_solve_dense_plain(S, b)
+        torch.cuda.synchronize()
+        err = _max_abs(x, xp)
+        excess = float(((x - xp).abs() - (2e-5 + 2e-4 * xp.abs())).max())
+        resid = float((S.double() @ x.double() - b.double()).norm() / b.double().norm())
+        if not (excess <= 0.0 and resid <= 1e-4):
+            raise AssertionError(f"chol_solve N={N}: |x - x_plain| = {err} (over tol by "
+                                 f"{excess}), residual {resid}")
+        bms, by = bound(nbytes(S, b, x), chol_flop(N))
+        plain_ms = median_ms(lambda: ck.chol_solve_dense_plain(S, b))
+        cases.append({"N": N, "max_abs_err": err, "residual": resid,
+                      "ms": median_ms(lambda: ck.chol_solve_dense(S, b)),
+                      "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                      "library_ms": plain_ms})
+    emit("kernel", name="chol_solve", tol="x rtol 2e-4 atol 2e-5, |Sx-b|/|b| <= 1e-4",
+         plain="torch.linalg.cholesky_ex + torch.cholesky_solve (the library call)",
+         cases=cases)
+    rows["chol_solve"] = cases
+
+    # K7 at the edge counts of scripts/diag_ba_launch.py, on edges of K3's
+    # inputs (the 28th channel, the camera index, dropped), channel by
+    # channel against the plain version evaluated in float64, relative to
+    # the channel's largest entry: within max(1e-5, 4x the float32 plain
+    # version's own error there). The residual channels cancel ~300 px to
+    # ~1 px, so a float32 evaluation errs by a few 1e-5 of their largest
+    # entry whichever way it rounds (ROADMAP.md section 3)
+    from sdslam_tpu_torch.kernels import ba_edge_kernel as ek
+
+    cases = []
+    for K, Mo, P in ((256, 16, 8192), (24, 10, 2048)):
+        args = _ba_inputs(dev, K, Mo=Mo, P=P)
+        E = Mo * P
+        packed = args[0][:27].reshape(27, E).contiguous()
+        cam_args = args[2:8]
+        out = ek.ba_edge_terms(packed, *cam_args)
+        ref = ek.ba_edge_terms_plain(packed, *cam_args)
+        ref64 = ek.ba_edge_terms_plain(packed.double(), *cam_args)
+        torch.cuda.synchronize()
+        scale = ref64.abs().amax(1).clamp(min=1e-30)
+        k_err = (out.double() - ref64).abs().amax(1) / scale
+        p_err = (ref.double() - ref64).abs().amax(1) / scale
+        ratio = k_err / torch.clamp(4.0 * p_err, min=1e-5)
+        ch = int(ratio.argmax())
+        del ref64
+        if not float(ratio[ch]) <= 1.0:
+            raise AssertionError(f"ba_edge E={E} channel {ch}: error {float(k_err[ch])} of the "
+                                 f"largest entry, plain float32 {float(p_err[ch])}")
+        bms, by = bound(nbytes(packed, out), E * BA_EDGE_TERMS_FLOP)
+        cases.append({"E": E, "max_abs_err": _max_abs(out, ref),
+                      "worst_err_over_tol": float(ratio[ch]), "worst_channel": ch,
+                      "rel_err": float(k_err[ch]), "plain_rel_err": float(p_err[ch]),
+                      "max_rel_err": float(k_err.max()), "max_plain_rel_err": float(p_err.max()),
+                      "ms": median_ms(lambda: ek.ba_edge_terms(packed, *cam_args)),
+                      "plain_ms": median_ms(lambda: ek.ba_edge_terms_plain(packed, *cam_args)),
+                      "bound_ms": bms, "bound_by": by, "library_ms": None})
+    emit("kernel", name="ba_edge",
+         tol="per channel vs float64, of its largest entry: max(1e-5, 4x plain f32 err)",
+         cases=cases)
+    rows["ba_edge"] = cases
     return rows
 
 
@@ -465,23 +550,32 @@ KERNEL_META = {
                 "sdslam_tpu/ops/pallas/hamming_kernel.py:56"),
     "accumulate_gn": ("sdslam_tpu_torch/csrc/accumulate_gn.cu",
                       "sdslam_tpu/ops/pallas/align_kernel.py:405"),
+    "chol_solve": ("sdslam_tpu_torch/csrc/chol_solve.cu",
+                   "sdslam_tpu/ops/pallas/chol_kernel.py:105"),
+    "ba_edge": ("sdslam_tpu_torch/csrc/ba_edge.cu",
+                "sdslam_tpu/ops/pallas/ba_edge_kernel.py:162"),
 }
 
-# the kernels each path must launch
+# the kernels each path must launch (ba_edge is on no path: neither package
+# calls it while tracking; phase 3 is its entry point)
 PATH_KERNELS = {
-    "main": ("align_level", "pose_gn", "ba_schur", "hamming"),
+    "main": ("align_level", "pose_gn", "ba_schur", "hamming", "chol_solve"),
     "reloc": ("accumulate_gn", "pose_gn", "hamming"),
-    "loop": ("accumulate_gn", "hamming", "ba_schur"),
+    "loop": ("accumulate_gn", "hamming", "ba_schur", "chol_solve"),
+    "mono": ("align_level", "pose_gn", "ba_schur", "hamming", "accumulate_gn", "chol_solve"),
+    "fusion": ("align_level", "pose_gn", "ba_schur", "hamming", "chol_solve"),
 }
 
 
 def kernel_modules():
     from sdslam_tpu_torch.kernels import (
-        accumulate_gn_kernel, align_kernel, ba_schur_kernel, hamming_kernel, pose_kernel,
+        accumulate_gn_kernel, align_kernel, ba_edge_kernel, ba_schur_kernel, chol_kernel,
+        hamming_kernel, pose_kernel,
     )
     return {"align_level": align_kernel, "pose_gn": pose_kernel,
             "ba_schur": ba_schur_kernel, "hamming": hamming_kernel,
-            "accumulate_gn": accumulate_gn_kernel}
+            "accumulate_gn": accumulate_gn_kernel, "chol_solve": chol_kernel,
+            "ba_edge": ba_edge_kernel}
 
 
 def reset_launches():
@@ -798,6 +892,140 @@ def phase_loop(dev, n_lap: int = 240, n_revisit: int = 40, bias_amp: float = 0.0
     return launches
 
 
+def mono_frames(seq, n):
+    """A monocular camera's payloads: u8 intensity on the host."""
+    return [(img.cpu().numpy().astype(np.uint8), ts)
+            for ts, img, _ in (seq.frame(k) for k in range(n))]
+
+
+def phase_mono(dev, n_frames: int = 32):
+    """The monocular SDSlamSystem with loop closing at the default
+    configuration on tests/test_mono.py's orbit motion (radius 0.12,
+    yaw_amp 0.03). Returns {kernel: launches}."""
+    from sdslam_tpu_torch.io import synthetic
+    from sdslam_tpu_torch.system import MONOCULAR, SDSlamSystem
+    from sdslam_tpu_torch.utils import metrics
+    from sdslam_tpu_torch.utils.config import SystemConfig
+
+    cfg = SystemConfig()
+    seq = synthetic.SyntheticSequence(cfg.camera, n_frames=n_frames, trajectory="orbit",
+                                      radius=0.12, yaw_amp=0.03, device=dev)
+    frames = mono_frames(seq, n_frames)
+    reset_launches()
+    sysm = SDSlamSystem(cfg, sensor=MONOCULAR, loop_closing=True, device=dev)
+    init_frame, init_ms = None, 0.0
+    with SyncCounter() as syncs:
+        t0 = time.perf_counter()
+        for k, (img, ts) in enumerate(frames):
+            a = time.perf_counter()
+            sysm.track_monocular(img, ts)
+            if init_frame is None:
+                torch.cuda.synchronize()
+                init_ms += (time.perf_counter() - a) * 1e3
+                if sysm.tracker.st.status == "OK":
+                    init_frame = k
+        sysm.finish()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_launches("mono")
+    tr = sysm.tracker
+    est = np.stack([np.asarray(p) for p in tr.trajectory])
+    gt = seq.poses.numpy()
+    ate = metrics.ate_rmse(est, gt, align=True, with_scale=True)
+    n_kf, n_pts = int(tr.ms.kf_valid.sum()), int(tr.ms.pt_valid.sum())
+    ft = tr.frame_ms
+    status = sysm.get_tracking_state()
+    emit("mono", frames=n_frames, status=status, init_frame=init_frame,
+         init_ms=init_ms, sim3_ate_cm=ate * 100.0, keyframes=n_kf, points=n_pts,
+         wall_fps=n_frames / wall,
+         median_track_ms=statistics.median(ft["track"]) if ft["track"] else None,
+         median_kf_ms=statistics.median(ft["kf"]) if ft["kf"] else None,
+         host_syncs_per_frame=syncs.n / n_frames,
+         detections=sum("detected" in i for i in sysm.loop_infos), launches=launches)
+    if init_frame is None or init_frame > 3:
+        raise AssertionError(f"mono: initialized at frame {init_frame}, expected by frame 3")
+    if status != "OK":
+        raise AssertionError(f"mono: final status {status}")
+    if not np.all(np.isfinite(est)) or est.shape != gt.shape:
+        raise AssertionError("mono: trajectory not finite or of the wrong shape")
+    if not (n_kf >= 3 and n_pts > 100):
+        raise AssertionError(f"mono: {n_kf} keyframes, {n_pts} points")
+    if not ate < 0.05:
+        raise AssertionError(f"mono: Sim3-aligned ATE {ate * 100:.3f} cm >= 5 cm")
+    return launches
+
+
+def jerky_poses(n: int, amp: float = 0.05):
+    """tests/test_fusion.py's direction-reversing motion: a smooth lead-in,
+    then the velocity flips sign every 2 frames."""
+    poses, x = [], 0.0
+    for i in range(n):
+        x += amp * 0.6 if i < 4 else (amp if (i // 2) % 2 == 0 else -amp)
+        T = np.eye(4, dtype=np.float32)
+        T[:3, 3] = -np.array([x, 0.002 * i, 0.015 * i], np.float32)
+        poses.append(T)
+    return np.stack(poses)
+
+
+def synth_imu(poses, fps: float = 30.0):
+    """Per-frame [gyro(3), accel(3)] from ground-truth poses: body rates from
+    consecutive poses, accelerometer = gravity in the body frame."""
+    from sdslam_tpu_torch.geometry import lie
+
+    g_world = np.array([0.0, -9.81, 0.0])
+    out = []
+    for i in range(len(poses)):
+        rel = poses[i] @ np.linalg.inv(poses[max(i - 1, 0)])
+        w = lie.so3_log(torch.as_tensor(rel[:3, :3].astype(np.float32))).numpy() * fps
+        out.append(np.concatenate([w, poses[i][:3, :3] @ -g_world]))
+    return out
+
+
+def phase_fusion(dev, n_frames: int = 16):
+    """The monocular + IMU SDSlamSystem (loop closing off) on the jerky
+    sequence of tests/test_fusion.py at the default configuration. Returns
+    {kernel: launches}."""
+    from sdslam_tpu_torch.io import synthetic
+    from sdslam_tpu_torch.pipeline import sensors
+    from sdslam_tpu_torch.system import MONOCULAR_IMU, SDSlamSystem
+    from sdslam_tpu_torch.utils import metrics
+    from sdslam_tpu_torch.utils.config import SystemConfig
+
+    cfg = SystemConfig()
+    poses = jerky_poses(n_frames)
+    seq = synthetic.SyntheticSequence(cfg.camera, trajectory="custom", poses=poses, device=dev)
+    frames = mono_frames(seq, n_frames)
+    imu = synth_imu(poses)
+    reset_launches()
+    sysm = SDSlamSystem(cfg, sensor=MONOCULAR_IMU, loop_closing=False, device=dev)
+    t0 = time.perf_counter()
+    for (img, ts), m in zip(frames, imu):
+        sysm.track_fusion(img, m, ts)
+    sysm.finish()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches("fusion")
+    tr = sysm.tracker
+    est = np.stack([np.asarray(p) for p in tr.trajectory])
+    ate = metrics.ate_rmse(est, poses, align=True, with_scale=True)
+    filt = sensors._jvec7_to_pose(tr.dst.imu.X[:7]).cpu().numpy()
+    dpos = float(np.linalg.norm(filt[:3, 3] - est[-1][:3, 3]))
+    updated = bool(tr.dst.imu.updated)
+    status = sysm.get_tracking_state()
+    emit("fusion", frames=n_frames, status=status, sim3_ate_cm=ate * 100.0,
+         filter_updated=updated, filter_to_last_pose_m=dpos,
+         keyframes=int(tr.ms.kf_valid.sum()), wall_fps=n_frames / wall, launches=launches)
+    if status != "OK":
+        raise AssertionError(f"fusion: final status {status}")
+    if not (updated and dpos < 0.02):
+        raise AssertionError(f"fusion: filter updated {updated}, {dpos} m from the last pose")
+    if not np.all(np.isfinite(est)) or est.shape != poses.shape:
+        raise AssertionError("fusion: trajectory not finite or of the wrong shape")
+    if not ate < 0.08:
+        raise AssertionError(f"fusion: Sim3-aligned ATE {ate * 100:.3f} cm >= 8 cm")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the card")
@@ -825,24 +1053,29 @@ def main():
     table = phase_kernels(dev)
     seconds["kernels"] = time.perf_counter() - t0
     by_path = {}
-    for name, fn in (("main", phase_main), ("reloc", phase_reloc), ("loop", phase_loop)):
+    for name, fn in (("main", phase_main), ("reloc", phase_reloc), ("loop", phase_loop),
+                     ("mono", phase_mono), ("fusion", phase_fusion)):
         t0 = time.perf_counter()
         by_path[name] = fn(dev)
         seconds[name] = time.perf_counter() - t0
     emit("seconds", **seconds)
 
+    # per kernel: its last case's numbers (the shape of its main-path call),
+    # and launches x (ms - bound_ms), the order of the redesign queue
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
         cases = table[name]
         last = cases[-1]
+        launches = sum(p[name] for p in by_path.values())
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": sum(p[name] for p in by_path.values()),
+            "launches": launches,
+            "excess_ms": launches * (last["ms"] - last["bound_ms"]),
             "launches_by_path": {path: p[name] for path, p in by_path.items()},
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             **{k: last[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-            "cases": [{k: c[k] for k in c if k in ("shape", "level", "K", "prior_rad", "ms",
-                                                   "plain_ms", "bound_ms", "bound_by",
+            "cases": [{k: c[k] for k in c if k in ("shape", "level", "K", "N", "E", "prior_rad",
+                                                   "ms", "plain_ms", "bound_ms", "bound_by",
                                                    "library_ms")}
                       for c in cases],
         })

@@ -122,6 +122,20 @@ def search_local_points(
     )
 
 
+def search_for_initialization(
+    f1_uv, f1_desc, f1_valid, f1_octave, f1_angle,
+    f2_uv, f2_desc, f2_valid, f2_octave, f2_angle,
+    window: float = 100.0, th_desc: int = ham.TH_LOW, ratio: float = 0.9,
+) -> MatchResult:
+    """Monocular-initialization window search around identical coordinates,
+    level-0 keypoints only, with the rotation-consistency filter. Returns
+    the f2-keypoint -> f1-keypoint assignment."""
+    return window_match(
+        f1_uv, f1_desc, f1_valid & (f1_octave == 0), f2_uv, f2_desc, f2_valid & (f2_octave == 0),
+        window, th_desc, ratio=ratio, q_angle=f1_angle, kp_angle=f2_angle, use_rotation=True,
+    )
+
+
 def search_by_sim3(
     cam: CameraModel,
     S12,  # [4,4] Sim3 mapping cam-2 coordinates into cam-1

@@ -31,6 +31,18 @@ def quat_normalize(q):
     return q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=_EPS)
 
 
+def quat_mul(a, b):
+    """Hamilton product, [w, x, y, z] convention."""
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
+
+
 def quat_to_mat(q):
     w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
     xx, yy, zz = x * x, y * y, z * z

@@ -5,9 +5,9 @@ arrays (the map is this system's "weights").
 `{k: np.asarray(v) for k, v in ms._asdict().items()}`, kf_pyramid as a
 tuple/list of arrays) and builds the port's MapState; uint32 descriptors
 become int32 bit patterns. `map_state_to_numpy` goes back, descriptors as
-uint32. The same pair exists for EKFState, DeviceState (the JAX
-DeviceState's IMU filter has no counterpart here and is dropped) and the
-loop closer's ConsistencyState.
+uint32. The same pair exists for EKFState, IMUState, DeviceState (its
+"ekf" and "imu" entries as nested dicts) and the loop closer's
+ConsistencyState.
 
 These are test-side converters: their `device` defaults to "cpu", where
 the tests compare the port with the JAX package, unlike the port's entry
@@ -23,7 +23,7 @@ import torch
 
 from sdslam_tpu_torch.mapping.map_state import MapState
 from sdslam_tpu_torch.pipeline.loop_closing import ConsistencyState
-from sdslam_tpu_torch.pipeline.sensors import EKFState
+from sdslam_tpu_torch.pipeline.sensors import EKFState, IMUState
 from sdslam_tpu_torch.pipeline.tracking import DeviceState
 
 _DESC_FIELDS = ("kf_desc", "pt_desc")
@@ -70,20 +70,34 @@ def ekf_state_to_numpy(s: EKFState) -> dict:
     return {f: _to_numpy(v) for f, v in s._asdict().items()}
 
 
+def imu_state_from_numpy(d: Mapping, device="cpu") -> IMUState:
+    return IMUState(**{f: _to_torch(d[f], device) for f in IMUState._fields})
+
+
+def imu_state_to_numpy(s: IMUState) -> dict:
+    return {f: _to_numpy(v) for f, v in s._asdict().items()}
+
+
+_FILTERS = {"ekf": (ekf_state_from_numpy, ekf_state_to_numpy),
+            "imu": (imu_state_from_numpy, imu_state_to_numpy)}
+
+
 def device_state_from_numpy(d: Mapping, device="cpu") -> DeviceState:
-    """d: the JAX DeviceState's fields; d["ekf"] is a mapping of EKFState
-    fields (or an object with _asdict()); any "imu" entry is ignored."""
-    ekf = d["ekf"]
-    if hasattr(ekf, "_asdict"):
-        ekf = ekf._asdict()
-    kw = {f: _to_torch(d[f], device) for f in DeviceState._fields if f != "ekf"}
-    return DeviceState(ekf=ekf_state_from_numpy(ekf, device), **kw)
+    """d: the JAX DeviceState's fields; d["ekf"] and d["imu"] are mappings
+    of the filters' fields (or objects with _asdict())."""
+    kw = {}
+    for f in DeviceState._fields:
+        if f in _FILTERS:
+            sub = d[f]._asdict() if hasattr(d[f], "_asdict") else d[f]
+            kw[f] = _FILTERS[f][0](sub, device)
+        else:
+            kw[f] = _to_torch(d[f], device)
+    return DeviceState(**kw)
 
 
 def device_state_to_numpy(s: DeviceState) -> dict:
-    out = {f: _to_numpy(v) for f, v in s._asdict().items() if f != "ekf"}
-    out["ekf"] = ekf_state_to_numpy(s.ekf)
-    return out
+    return {f: _FILTERS[f][1](v) if f in _FILTERS else _to_numpy(v)
+            for f, v in s._asdict().items()}
 
 
 def consistency_state_from_numpy(d: Mapping, device="cpu") -> ConsistencyState:

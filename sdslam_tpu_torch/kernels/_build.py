@@ -25,7 +25,8 @@ from sdslam_tpu_torch.solvers import ba_const
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("hamming", "align_level", "pose_gn", "ba_schur", "accumulate_gn")
+SOURCES = ("hamming", "align_level", "pose_gn", "ba_schur", "accumulate_gn", "chol_solve",
+           "ba_edge")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

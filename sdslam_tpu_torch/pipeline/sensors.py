@@ -1,18 +1,30 @@
-"""Constant-velocity EKF motion model (port of the device-resident filter in
-sdslam_tpu/pipeline/sensors.py: ekf_init / ekf_predict / ekf_update).
+"""EKF motion models (port of sdslam_tpu/pipeline/sensors.py).
 
-State = body twist [v(3), w(3)]; predicted pose = Exp(x dt) last_pose; the
-measurement is the relative twist Log(T_meas last_pose^-1)/dt, innovation
-chi2 gated. The 16-state IMU filter is not ported yet (RGB-D runs without
-IMU). Every function is sync-free: flags stay 0-d bool tensors.
+  * The constant-velocity filter on the device (ekf_init / ekf_predict /
+    ekf_update): state = body twist [v(3), w(3)]; predicted pose =
+    Exp(x dt) last_pose; the measurement is the relative twist
+    Log(T_meas last_pose^-1)/dt, innovation chi2 gated.
+  * The 16-state IMU filter on the device (IMUState, imu_init /
+    imu_predict / imu_update): state [x(3), q(4 wxyz), v(3), w(3), a(3)]
+    of the camera pose Tcw, measurement [pose(7), gyro(3),
+    accel-minus-gravity(3)], gravity tracked by a low-pass filter. The
+    tracker runs it inside the frame step, so it fuses the current frame's
+    tracked pose (the fusion sensor).
+  * IMUStateEKF: the same 16-state filter in float64 numpy on the host,
+    the facade's introspection mirror of the fusion sensor.
+
+Every device function is sync-free: flags stay 0-d bool tensors.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
+from scipy.spatial.transform import Rotation as _R
 
+from sdslam_tpu_torch._util import as_device
 from sdslam_tpu_torch.geometry import lie
 
 CHI2_GATE_6DOF = 16.81
@@ -81,3 +93,335 @@ def ekf_update(s: EKFState, T_meas, dt, ok) -> EKFState:
         started=s.started | accept,
         has_pose=s.has_pose | ok,
     )
+
+
+# ---------------------------------------------------------------------------
+# 16-state IMU filter on the device
+# ---------------------------------------------------------------------------
+
+# noise constants of the reference's IMU sensor model
+COV_X2, COV_Q2, COV_V2, COV_W2, COV_A2 = 2.5e-3, 1e-5, 6.25e-4, 6.25e-4, 6.25e-4
+SIGMA_X, SIGMA_Q, SIGMA_V, SIGMA_W = 0.05, 0.02, 4.0, 6.0
+SIGMA_GYRO, SIGMA_ACC = 2.60, 8.94
+GRAVITY_TAU = 0.27
+
+
+class IMUState(NamedTuple):
+    X: torch.Tensor  # [16]: x(3), q(4 wxyz), v(3), w(3), a(3) of the camera Tcw
+    P: torch.Tensor  # [16,16]
+    gravity: torch.Tensor  # [3] low-pass filtered accelerometer gravity
+    updated: torch.Tensor  # bool: one update absorbed
+
+
+def _diag_blocks(blocks, device):
+    """diag of (size, value) runs; a value may be a 0-d tensor."""
+    return torch.diag(torch.cat([as_device(v, torch.float32, device).expand(n)
+                                 for n, v in blocks]))
+
+
+def imu_init(device=None) -> IMUState:
+    P = _diag_blocks(((3, COV_X2), (4, COV_Q2), (3, COV_V2), (3, COV_W2), (3, COV_A2)), device)
+    X = _diag_blocks(((16, 1.0),), device)[3]  # the identity quaternion, fills only
+    return IMUState(X=X, P=P, gravity=torch.zeros(3, device=device),
+                    updated=torch.zeros((), dtype=torch.bool, device=device))
+
+
+def _jquat_from_w(w):
+    """Quaternion [w,x,y,z] from a rotation vector, branchless near 0."""
+    a2 = torch.sum(w * w)
+    a = torch.sqrt(torch.clamp(a2, min=1e-24))
+    s = torch.where(a2 < 1e-12, 0.5 - a2 / 48.0, torch.sin(a / 2.0) / a)
+    return torch.cat([torch.cos(a / 2.0)[None], s * w])
+
+
+def _jquat_jac_left(q):
+    """d(p (x) q)/dp for fixed q."""
+    w, x, y, z = q
+    return torch.stack([torch.stack(r) for r in (
+        (w, -x, -y, -z), (x, w, z, -y), (y, -z, w, x), (z, y, -x, w))])
+
+
+def _jquat_jac_right(q):
+    """d(q (x) p)/dp for fixed q."""
+    w, x, y, z = q
+    return torch.stack([torch.stack(r) for r in (
+        (w, -x, -y, -z), (x, w, -z, y), (y, z, w, -x), (z, -y, x, w))])
+
+
+def _jdq_by_dw(q, w, dt):
+    """d(q (x) exp(w dt))/dw: [4,3], branchless."""
+    n2 = torch.sum(w * w)
+    n = torch.sqrt(torch.clamp(n2, min=1e-24))
+    small = n2 < 1e-12
+    beta = n * dt / 2.0
+    sb, cb = torch.sin(beta), torch.cos(beta)
+    u = w / torch.where(small, torch.ones_like(n), n)
+    eye = torch.eye(3, device=w.device)
+    uu = u[:, None] * u[None, :]
+    m_top = (-dt / 2.0) * sb * u
+    sb_n = torch.where(small, dt / 2.0, sb / n)
+    m_body = (dt / 2.0) * cb * uu + sb_n * (eye - uu)
+    m_body = torch.where(small, eye * (dt / 2.0), m_body)
+    return _jquat_jac_right(q) @ torch.cat([m_top[None, :], m_body], 0)
+
+
+def _jvec7_to_pose(v):
+    T = torch.eye(4, device=v.device)
+    T[:3, :3] = lie.quat_to_mat(lie.quat_normalize(v[3:7]))
+    T[:3, 3] = v[:3]
+    return T
+
+
+def _jpose_to_vec7(T):
+    return torch.cat([T[:3, 3], lie.mat_to_quat(T[:3, :3])])
+
+
+def imu_predict(s: IMUState, dt):
+    """Propagate; returns (state, predicted camera Tcw). Before the first
+    update dt is treated as 0."""
+    dt = torch.where(s.updated, torch.clamp(torch.as_tensor(dt, device=s.X.device), min=0.0),
+                     0.0)
+    X = s.X
+    q, w = X[3:7], X[10:13]
+    dq = _jdq_by_dw(q, w, dt)
+    eye3 = torch.eye(3, device=X.device)
+    jF = torch.eye(16, device=X.device)
+    jF[0:3, 7:10] = eye3 * dt
+    jF[7:10, 13:16] = eye3 * dt
+    jF[3:7, 3:7] = _jquat_jac_left(_jquat_from_w(w * dt))
+    jF[3:7, 10:13] = dq
+    # process noise G Pn G^T
+    Pn = _diag_blocks(((3, (SIGMA_V * dt) ** 2), (3, (SIGMA_W * dt) ** 2),
+                       (3, (SIGMA_ACC * dt) ** 2)), X.device)
+    G = torch.zeros((16, 9), device=X.device)
+    G[0:3, 0:3] = eye3 * dt
+    G[7:10, 0:3] = eye3
+    G[7:10, 6:9] = eye3 * dt
+    G[10:13, 3:6] = eye3
+    G[13:16, 6:9] = eye3
+    G[3:7, 3:6] = dq
+    Q = G @ Pn @ G.T
+    # x += v dt; q (x)= exp(w dt); v += a dt
+    Xn = X.clone()
+    Xn[0:3] = X[0:3] + X[7:10] * dt
+    Xn[3:7] = lie.quat_mul(q, _jquat_from_w(w * dt))
+    Xn[7:10] = X[7:10] + X[13:16] * dt
+    P = jF @ s.P @ jF.T + Q
+    return s._replace(X=Xn, P=P), _jvec7_to_pose(Xn[:7])
+
+
+def imu_update(s: IMUState, Tcw, gyro, accel, dt, ok) -> IMUState:
+    """Fuse the current frame's tracked pose and the raw IMU sample when
+    `ok` (a 0-d bool tensor). The first measurement seeds the state."""
+    dt = torch.clamp(torch.as_tensor(dt, device=s.X.device), min=1e-4)
+    alpha = GRAVITY_TAU / (GRAVITY_TAU + dt)
+    gravity = torch.where(s.updated, alpha * s.gravity + (1 - alpha) * accel, accel)
+    z = torch.cat([_jpose_to_vec7(Tcw), gyro, accel - gravity])
+    # hemisphere-align the measured quaternion against the state
+    flip = torch.sum(z[3:7] * s.X[3:7]) < 0
+    z = torch.cat([z[0:3], z[3:7] * torch.where(flip, -1.0, 1.0), z[7:]])
+    h = torch.cat([s.X[0:7], s.X[10:13], s.X[13:16]])
+    jH = torch.zeros((13, 16), device=s.X.device)
+    jH[0:7, 0:7] = torch.eye(7, device=s.X.device)
+    jH[7:10, 10:13] = torch.eye(3, device=s.X.device)
+    jH[10:13, 13:16] = torch.eye(3, device=s.X.device)
+    Rm = _diag_blocks(((3, (SIGMA_X * dt) ** 2), (4, (SIGMA_Q * dt) ** 2),
+                       (3, (SIGMA_GYRO * dt) ** 2), (3, (SIGMA_ACC * dt) ** 2)), s.X.device)
+    y = z - h
+    S = jH @ s.P @ jH.T + Rm
+    Kg = s.P @ jH.T @ torch.linalg.inv_ex(S)[0]
+    Xn = s.X + Kg @ y
+    Pn = s.P - Kg @ S @ Kg.T
+    Xn = torch.cat([Xn[0:3], lie.quat_normalize(Xn[3:7]), Xn[7:]])
+    X_seed = torch.cat([z[0:7], torch.zeros(9, device=s.X.device)])
+    X_out = torch.where(s.updated, Xn, X_seed)
+    P_out = torch.where(s.updated, Pn, s.P)
+    return IMUState(
+        X=torch.where(ok, X_out, s.X),
+        P=torch.where(ok, P_out, s.P),
+        gravity=torch.where(ok, gravity, s.gravity),
+        updated=s.updated | ok,
+    )
+
+
+# ---------------------------------------------------------------------------
+# The same 16-state filter in float64 numpy on the host
+# ---------------------------------------------------------------------------
+
+
+def _quat_mul(p: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """Hamilton product, [w,x,y,z] convention."""
+    pw, px, py, pz = p
+    qw, qx, qy, qz = q
+    return np.array([
+        pw * qw - px * qx - py * qy - pz * qz,
+        pw * qx + px * qw + py * qz - pz * qy,
+        pw * qy - px * qz + py * qw + pz * qx,
+        pw * qz + px * qy - py * qx + pz * qw,
+    ])
+
+
+def _quat_from_w(w: np.ndarray) -> np.ndarray:
+    """Quaternion from a rotation vector."""
+    angle = float(np.linalg.norm(w))
+    if angle <= 0.0:
+        return np.array([1.0, 0.0, 0.0, 0.0])
+    s = np.sin(angle / 2.0) / angle
+    return np.array([np.cos(angle / 2.0), s * w[0], s * w[1], s * w[2]])
+
+
+def _quat_jac_left(q: np.ndarray) -> np.ndarray:
+    """d(p (x) q)/dp for fixed q: 4x4."""
+    w, x, y, z = q
+    return np.array([[w, -x, -y, -z], [x, w, z, -y], [y, -z, w, x], [z, y, -x, w]])
+
+
+def _quat_jac_right(q: np.ndarray) -> np.ndarray:
+    """d(q (x) p)/dp for fixed q: 4x4."""
+    w, x, y, z = q
+    return np.array([[w, -x, -y, -z], [x, w, -z, y], [y, z, w, -x], [z, -y, x, w]])
+
+
+def _dq_by_dw(q: np.ndarray, w: np.ndarray, dt: float) -> np.ndarray:
+    """d(q (x) exp(w dt))/dw: 4x3."""
+    n = float(np.linalg.norm(w))
+    if n == 0.0:
+        return np.vstack([np.zeros((1, 3)), np.eye(3) * (dt / 2.0)])
+    beta = n * dt / 2.0
+    sb, cb = np.sin(beta), np.cos(beta)
+    u = w / n
+    m = np.zeros((4, 3))
+    m[0] = (-dt / 2.0) * sb * u
+    for i in range(3):
+        for j in range(3):
+            if i == j:
+                m[i + 1, j] = (dt / 2.0) * cb * u[i] * u[i] + (sb / n) * (1.0 - u[i] * u[i])
+            else:
+                m[i + 1, j] = u[i] * u[j] * ((dt / 2.0) * cb - sb / n)
+    return _quat_jac_right(q) @ m
+
+
+def _pose_to_vec7(T: np.ndarray) -> np.ndarray:
+    """[t(3), q(4 wxyz)] from a 4x4 pose."""
+    q = _R.from_matrix(np.asarray(T, float)[:3, :3]).as_quat()  # xyzw
+    return np.concatenate([np.asarray(T, float)[:3, 3], [q[3], q[0], q[1], q[2]]])
+
+
+def _vec7_to_pose(v: np.ndarray) -> np.ndarray:
+    T = np.eye(4)
+    w, x, y, z = v[3:7]
+    T[:3, :3] = _R.from_quat([x, y, z, w]).as_matrix()
+    T[:3, 3] = v[:3]
+    return T
+
+
+class IMUStateEKF:
+    """The 16-state IMU filter in float64 on the host: state [x(3), q(4
+    wxyz), v(3), w(3), a(3)], measurement [pose(7), gyro(3),
+    accel-minus-gravity(3)], gravity low-pass alpha = 0.27/(0.27 + dt)."""
+
+    def __init__(self):
+        self.restart()
+
+    def restart(self):
+        self.X = np.zeros(16)
+        self.X[3] = 1.0  # identity quaternion
+        self.P = np.zeros((16, 16))
+        self.P[0:3, 0:3] = np.eye(3) * COV_X2
+        self.P[3:7, 3:7] = np.eye(4) * COV_Q2
+        self.P[7:10, 7:10] = np.eye(3) * COV_V2
+        self.P[10:13, 10:13] = np.eye(3) * COV_W2
+        self.P[13:16, 13:16] = np.eye(3) * COV_A2
+        self.gravity = np.zeros(3)
+        self.updated = False
+
+    def _F(self, X: np.ndarray, dt: float) -> np.ndarray:
+        """x += v dt; q (x)= exp(w dt); v += a dt."""
+        Xn = X.copy()
+        Xn[0:3] = X[0:3] + X[7:10] * dt
+        Xn[3:7] = _quat_mul(X[3:7], _quat_from_w(X[10:13] * dt))
+        Xn[7:10] = X[7:10] + X[13:16] * dt
+        return Xn
+
+    def _jF(self, X: np.ndarray, dt: float) -> np.ndarray:
+        J = np.eye(16)
+        J[0:3, 7:10] = np.eye(3) * dt
+        J[7:10, 13:16] = np.eye(3) * dt
+        J[3:7, 3:7] = _quat_jac_left(_quat_from_w(X[10:13] * dt))
+        J[3:7, 10:13] = _dq_by_dw(X[3:7], X[10:13], dt)
+        return J
+
+    def _Q(self, X: np.ndarray, dt: float) -> np.ndarray:
+        """Process noise G Pn G^T."""
+        Pn = np.zeros((9, 9))
+        Pn[0:3, 0:3] = np.eye(3) * (SIGMA_V * dt) ** 2
+        Pn[3:6, 3:6] = np.eye(3) * (SIGMA_W * dt) ** 2
+        Pn[6:9, 6:9] = np.eye(3) * (SIGMA_ACC * dt) ** 2
+        G = np.zeros((16, 9))
+        G[0:3, 0:3] = np.eye(3) * dt
+        G[7:10, 0:3] = np.eye(3)
+        G[7:10, 6:9] = np.eye(3) * dt
+        G[10:13, 3:6] = np.eye(3)
+        G[13:16, 6:9] = np.eye(3)
+        G[3:7, 3:6] = _dq_by_dw(X[3:7], X[10:13], dt)
+        return G @ Pn @ G.T
+
+    def _R_meas(self, dt: float) -> np.ndarray:
+        Rm = np.zeros((13, 13))
+        Rm[0:3, 0:3] = np.eye(3) * (SIGMA_X * dt) ** 2
+        Rm[3:7, 3:7] = np.eye(4) * (SIGMA_Q * dt) ** 2
+        Rm[7:10, 7:10] = np.eye(3) * (SIGMA_GYRO * dt) ** 2
+        Rm[10:13, 10:13] = np.eye(3) * (SIGMA_ACC * dt) ** 2
+        return Rm
+
+    def predict(self, dt: float) -> np.ndarray:
+        """Propagate; returns the predicted camera pose. Before the first
+        update dt is treated as 0."""
+        if not self.updated:
+            dt = 0.0
+        dt = max(dt, 0.0)
+        jF = self._jF(self.X, dt)
+        Q = self._Q(self.X, dt)
+        self.X = self._F(self.X, dt)
+        self.P = jF @ self.P @ jF.T + Q
+        return _vec7_to_pose(self.X[:7])
+
+    def update(self, pose: np.ndarray, gyro, accel, dt: float):
+        """Fuse a tracked pose and the raw IMU sample; the first
+        measurement seeds the state."""
+        dt = max(dt, 1e-4)
+        alpha = GRAVITY_TAU / (GRAVITY_TAU + dt)
+        accel = np.asarray(accel, float)
+        if not self.updated:
+            self.gravity = accel.copy()
+        else:
+            self.gravity = alpha * self.gravity + (1 - alpha) * accel
+        z = np.concatenate([_pose_to_vec7(pose), np.asarray(gyro, float), accel - self.gravity])
+        if not self.updated:
+            self.X[:] = 0.0
+            self.X[0:7] = z[0:7]
+            self.updated = True
+            return
+        # q and -q are one rotation: align the measured quaternion's sign
+        if np.dot(z[3:7], self.X[3:7]) < 0:
+            z[3:7] = -z[3:7]
+        h = np.concatenate([self.X[0:7], self.X[10:13], self.X[13:16]])
+        jH = np.zeros((13, 16))
+        jH[0:7, 0:7] = np.eye(7)
+        jH[7:10, 10:13] = np.eye(3)
+        jH[10:13, 13:16] = np.eye(3)
+        Rm = self._R_meas(dt)
+        y = z - h
+        S = jH @ self.P @ jH.T + Rm
+        K = self.P @ jH.T @ np.linalg.inv(S)
+        self.X = self.X + K @ y
+        self.P = self.P - K @ S @ K.T
+        n = np.linalg.norm(self.X[3:7])
+        if n > 1e-9:
+            self.X[3:7] /= n
+
+    def angular_rate(self) -> np.ndarray:
+        return self.X[10:13].copy()
+
+    def pose(self) -> np.ndarray:
+        return _vec7_to_pose(self.X[:7])

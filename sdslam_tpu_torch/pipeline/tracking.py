@@ -1,12 +1,16 @@
-"""RGB-D tracking front-end + keyframe mapping pass (port of the RGB-D part
-of sdslam_tpu/pipeline/tracking.py).
+"""Tracking front-ends + keyframe mapping pass (port of
+sdslam_tpu/pipeline/tracking.py): `RGBDTracker` and the monocular
+`MonoTracker`, with the IMU filter of the fusion sensor in the frame step.
 
 Per frame, on the device: ORB extraction, constant-velocity EKF
-prediction, direct image alignment against the reference keyframe (K1),
-projection matching and local-map search (K4), two pose GN solves (K2), the
-keyframe decision, and on keyframes the whole mapping pass `_kf_core`
-(insertion, covisibility, fusion, local BA (K3), point spawning,
-triangulation, counters, culling, statistics), then the EKF update.
+prediction (and, once IMU samples arrive, the 16-state IMU filter's),
+direct image alignment against the reference keyframe (K1), projection
+matching and local-map search (K4), two pose GN solves (K2), the keyframe
+decision, and on keyframes the whole mapping pass `_kf_core` (insertion,
+covisibility, fusion, local BA (K3, K6), point spawning, triangulation,
+counters, culling, statistics), then the filter updates. A monocular
+tracker first bootstraps its map from two views (solvers/initializer.py)
+and a global BA.
 
 The JAX package runs this as one jitted program with lax.cond branches;
 PyTorch runs eagerly, so the keyframe decision and the keyframe-culling
@@ -26,7 +30,7 @@ import numpy as np
 import torch
 
 from sdslam_tpu_torch import _device
-from sdslam_tpu_torch._util import scatter_set, take, topk_stable
+from sdslam_tpu_torch._util import put, scatter_set, take, topk_stable
 from sdslam_tpu_torch.features import matching
 from sdslam_tpu_torch.features.frame import Frame, ORBExtractor, make_frame
 from sdslam_tpu_torch.geometry import camera as cam_mod
@@ -38,6 +42,8 @@ from sdslam_tpu_torch.ops import hamming as ham
 from sdslam_tpu_torch.pipeline import sensors
 from sdslam_tpu_torch.pipeline.relocalization import relocalize
 from sdslam_tpu_torch.solvers import ba, image_align, pose_opt
+from sdslam_tpu_torch.solvers import initializer as init_mod
+from sdslam_tpu_torch.solvers.sim3_solver import sample_sets
 from sdslam_tpu_torch.utils.config import SystemConfig
 
 # pyramid levels stored per keyframe (direct alignment runs on levels >= 2)
@@ -224,6 +230,7 @@ class DeviceState(NamedTuple):
     """Per-frame tracker state that lives on the device across frames."""
 
     ekf: sensors.EKFState
+    imu: sensors.IMUState  # 16-state IMU filter (fusion sensor)
     last_kf_slot: torch.Tensor  # int32
     frames_since_kf: torch.Tensor  # int32
     ref_kf_inliers: torch.Tensor  # int32
@@ -262,9 +269,13 @@ class RGBDTracker:
     `track(img, depth, ts)` runs one frame; `track_batch(items)` runs a
     list of (img, depth, ts). numpy u8 images with u16 depth travel as one
     packed upload (decimated depth, as the JAX package's packed path);
-    anything else (float images, device tensors) takes the unpacked path.
-    Results drain from the device a few frames behind (`flush()` drains all).
+    anything else (float images, device tensors, frames without depth)
+    takes the unpacked path. Results drain from the device a few frames
+    behind (`flush()` drains all). `inject_imu` hands the next frame an IMU
+    sample (the fusion sensor).
     """
+
+    _HAS_DEPTH = True
 
     PIPELINE_DEPTH = 4
     LOST_PATIENCE = 1
@@ -300,6 +311,11 @@ class RGBDTracker:
         self._t0: Optional[float] = None
         self.host_syncs = 0
         self._frame_marks: List[Tuple[bool, object, object]] = []
+        self._imu_meas = np.zeros(6, np.float32)  # [gyro(3), accel(3)] for the next frame
+        self._use_imu = False
+        # the IMU filter runs from the first injected sample on; before it
+        # the JAX package's always-on filter is an exact no-op (dt = 0)
+        self._imu_active = False
 
     # -- host syncs and per-frame timing ---------------------------------
 
@@ -345,7 +361,19 @@ class RGBDTracker:
         feats, pyramid, d, uright = self.extractor.core(img, depth_img,
                                                         float(cfg.tracking.depth_map_factor))
         dt = torch.clamp(ts - dst.last_ts, min=1e-4)
-        ekf, T_pred = sensors.ekf_predict(dst.ekf, dt)
+        ekf, imu_s, use_imu = dst.ekf, dst.imu, self._use_imu
+        if use_imu:
+            # fills, not a host->device copy
+            meas = torch.stack([torch.full((), float(v), device=self.device)
+                                for v in self._imu_meas])
+            gyro, accel = meas[:3], meas[3:]
+            # the gyro rate overrides the filter's angular twist
+            ekf = ekf._replace(x=torch.cat([ekf.x[:3], gyro]))
+        ekf, T_pred = sensors.ekf_predict(ekf, dt)
+        if self._imu_active:
+            imu_s, T_pred_imu = sensors.imu_predict(imu_s, dt)
+            if use_imu:
+                T_pred = torch.where(dst.imu.updated, T_pred_imu, T_pred)
         out = _track_core(
             cam, ms, feats.uv_und, feats.desc, feats.octave, feats.valid, uright, pyramid,
             dst.last_kf_slot, T_pred, scale_factor=sf, n_levels=nl,
@@ -374,9 +402,12 @@ class RGBDTracker:
             slot, Tcw_fin = dst.last_kf_slot, out.Tcw
         T_report = torch.where(track_ok, Tcw_fin, ekf.last_pose)
         ekf = sensors.ekf_update(ekf, Tcw_fin, dt, track_ok)
+        if self._imu_active and use_imu:
+            imu_s = sensors.imu_update(imu_s, Tcw_fin, gyro, accel, dt, track_ok)
         i32 = torch.int32
         self.dst = DeviceState(
             ekf=ekf,
+            imu=imu_s,
             last_kf_slot=slot if need_kf else dst.last_kf_slot,
             frames_since_kf=torch.zeros_like(fskf) if need_kf else fskf + 1,
             ref_kf_inliers=n_inl.to(i32) if need_kf else dst.ref_kf_inliers,
@@ -444,6 +475,22 @@ class RGBDTracker:
 
     # -- host API ------------------------------------------------------------
 
+    def inject_imu(self, gyro, accel=None):
+        """Hand the next tracked frame a raw IMU sample (fusion sensor): its
+        gyro rate seeds the motion model and the 16-state filter fuses it
+        with that frame's tracked pose."""
+        m = np.zeros(6, np.float32)
+        m[:3] = np.asarray(gyro, np.float32).reshape(3)
+        if accel is not None:
+            m[3:6] = np.asarray(accel, np.float32).reshape(3)
+        self._imu_meas = m
+        self._use_imu = True
+        self._imu_active = True
+
+    def inject_angular_rate(self, w):
+        """Gyro-only variant of inject_imu."""
+        self.inject_imu(w)
+
     def reset_reference(self, slot: int):
         """Re-anchor tracking after an external map update (loop closure):
         new reference keyframe, motion filter restarted from its pose."""
@@ -454,6 +501,7 @@ class RGBDTracker:
         if self.dst is not None:
             self.dst = self.dst._replace(
                 ekf=sensors.ekf_init(T),
+                imu=sensors.imu_init(self.device),
                 last_kf_slot=torch.full((), int(slot), dtype=torch.int32, device=self.device),
             )
 
@@ -471,8 +519,7 @@ class RGBDTracker:
         self.ms = keyframe_step(
             self.cam, self.ms, slot, frame.Tcw, f.uv, f.uv_und, f.octave, f.angle, f.desc,
             f.valid, frame.depth, frame.uright,
-            torch.full((f.capacity,), -1, dtype=torch.int32, device=dev),
-            tuple(frame.pyramid[KF_STORE_MIN_LEVEL:]),
+            torch.full((f.capacity,), -1, dtype=torch.int32, device=dev), self._stored_pyr(frame),
             torch.tensor(self.st.frame_id, dtype=torch.int32, device=dev),
             torch.tensor(self._rel_ts(timestamp), dtype=torch.float32, device=dev),
             torch.tensor(-1, dtype=torch.int32, device=dev), scale_factor=sf, n_levels=nl,
@@ -496,6 +543,7 @@ class RGBDTracker:
         i32 = torch.int32
         self.dst = DeviceState(
             ekf=sensors.ekf_init(Tcw.to(dev)),
+            imu=sensors.imu_init(dev),  # restarts on relocalization
             last_kf_slot=torch.tensor(slot, dtype=i32, device=dev),
             frames_since_kf=torch.tensor(0, dtype=i32, device=dev),
             ref_kf_inliers=torch.tensor(self.st.ref_kf_inliers, dtype=i32, device=dev),
@@ -504,7 +552,10 @@ class RGBDTracker:
         )
 
     def _as_device(self, x):
-        return torch.as_tensor(x).to(self.device)
+        return None if x is None else torch.as_tensor(x).to(self.device)
+
+    def _stored_pyr(self, frame: Frame):
+        return tuple(frame.pyramid[KF_STORE_MIN_LEVEL:])
 
     def track(self, img, depth_img, timestamp: float):
         """Track one frame; returns its pose (a device tensor until drained)."""
@@ -513,7 +564,8 @@ class RGBDTracker:
                                depth_img=self._as_device(depth_img),
                                depth_factor=self.cfg.tracking.depth_map_factor)
             self._initialize(frame, timestamp)
-            self.trajectory.append(np.asarray(self.st.T_last))
+            pose = self.st.T_last if self.st.status == "OK" else frame.Tcw.cpu().numpy()
+            self.trajectory.append(np.asarray(pose))
             self.timestamps.append(timestamp)
             self.st.frame_id += 1
             return self.trajectory[-1]
@@ -521,7 +573,7 @@ class RGBDTracker:
             return self._relocalize_step(img, depth_img, timestamp)
         th_radius = (self.TH_RADIUS_RELOC if self.st.frame_id < self._reloc_boost_until
                      else self.TH_RADIUS)
-        if (isinstance(img, np.ndarray) and isinstance(depth_img, np.ndarray)
+        if (self._HAS_DEPTH and isinstance(img, np.ndarray) and isinstance(depth_img, np.ndarray)
                 and img.dtype == np.uint8 and depth_img.dtype == np.uint16):
             buf = self._as_device(pack_frame(img, depth_img, self._rel_ts(timestamp)))
             packed, T_report, frame = self._run_frame(self._step_packed, buf, th_radius)
@@ -529,6 +581,7 @@ class RGBDTracker:
             ts = torch.full((), self._rel_ts(timestamp), device=self.device)
             packed, T_report, frame = self._run_frame(
                 self._step, self._as_device(img), self._as_device(depth_img), ts, th_radius)
+        self._use_imu = False
         self.trajectory.append(T_report)
         self.timestamps.append(timestamp)
         self._pending.append((len(self.trajectory) - 1, packed))
@@ -627,3 +680,117 @@ class RGBDTracker:
         self.trajectory.append(np.array(st.T_last))
         self.timestamps.append(timestamp)
         return self.trajectory[-1]
+
+
+def _nanmedian(x: torch.Tensor) -> torch.Tensor:
+    """numpy's nanmedian of a 1-d tensor (the mean of the two middle values
+    for an even count, where torch.nanmedian returns the lower one), with
+    the linear interpolation jnp.nanmedian uses; no host sync."""
+    n = (~torch.isnan(x)).sum()
+    srt = torch.sort(x).values  # NaN last
+    pos = 0.5 * (n - 1).to(torch.float32)
+    lo = torch.floor(pos)
+    w = pos - lo
+    lo = lo.to(torch.int64).clamp(min=0)
+    hi = torch.ceil(pos).to(torch.int64).clamp(min=0)
+    return take(srt, lo) * (1.0 - w) + take(srt, hi) * w
+
+
+class MonoTracker(RGBDTracker):
+    """Monocular front-end: two-view bootstrap (H/F RANSAC) and map growth
+    by triangulation. The initial map's median depth is normalized to 1.
+    `track(img, ts)` takes no depth; frames go through the unpacked step."""
+
+    _HAS_DEPTH = False
+    TH_RADIUS = 1.0  # monocular local-map search window
+    INIT_SAMPLES = 200  # RANSAC hypotheses of the two-view bootstrap
+
+    def __init__(self, cfg: SystemConfig, device="cuda"):
+        if cfg.tracking.use_pattern:
+            raise NotImplementedError(
+                "monocular chessboard initialization (use_pattern) is not ported: it waits "
+                "for a pattern detector without OpenCV (ROADMAP.md, M13)")
+        super().__init__(cfg, device=device)
+        self._init_frame: Optional[Frame] = None
+        self._init_ts = 0.0
+        self._init_seed = 0  # counts the bootstrap attempts (the JAX tracker's _seed)
+
+    def track(self, img, timestamp: float):  # type: ignore[override]
+        return super().track(img, None, timestamp)
+
+    def _init_samples(self, valid):
+        """[INIT_SAMPLES, 8] keypoint indices drawn with replacement in
+        proportion to `valid`, from a device generator seeded by the attempt
+        count (the JAX tracker draws with jax.random.key(attempt))."""
+        gen = torch.Generator(device=self.device).manual_seed(self._init_seed)
+        return sample_sets(valid, self.INIT_SAMPLES, 8, generator=gen)
+
+    def _initialize(self, frame: Frame, timestamp: float):
+        f = frame.features
+        if self._init_frame is None:
+            self._init_frame, self._init_ts = frame, timestamp
+            return
+        f0 = self._init_frame.features
+        res = matching.search_for_initialization(
+            f0.uv_und, f0.desc, f0.valid, f0.octave, f0.angle,
+            f.uv_und, f.desc, f.valid, f.octave, f.angle)
+        kp_to_q = res.kp_to_query  # frame keypoint -> init-frame keypoint
+        if not self._sync(res.count() >= 100):
+            # too little overlap: restart from this frame
+            self._init_frame, self._init_ts = frame, timestamp
+            return
+        q = torch.clamp(kp_to_q, 0, f0.capacity - 1).long()
+        valid = kp_to_q >= 0
+        self._init_seed += 1
+        ires = init_mod.initialize_two_view(self.cam, f0.uv_und[q], f.uv_und, valid,
+                                            self._init_samples(valid))
+        if not self._sync(ires.success):
+            return
+        # scale: median triangulated depth -> 1
+        inl = ires.inliers
+        med = _nanmedian(torch.where(inl, ires.X1[:, 2], torch.full_like(ires.X1[:, 2], np.nan)))
+        X1 = ires.X1 / med
+        T2 = lie.se3_from_Rt(ires.R21, ires.t21 / med)
+        dev, i32 = self.device, torch.int32
+        sf, nl = self.cfg.orb.scale_factor, self.cfg.orb.n_levels
+
+        def kf(slot, fr, T, frame_id, ts, parent):
+            g = fr.features
+            return keyframe_step(
+                self.cam, self.ms, slot, T, g.uv, g.uv_und, g.octave, g.angle, g.desc, g.valid,
+                fr.depth, fr.uright, torch.full((g.capacity,), -1, dtype=i32, device=dev),
+                self._stored_pyr(fr), torch.tensor(frame_id, dtype=i32, device=dev),
+                torch.tensor(self._rel_ts(ts), dtype=torch.float32, device=dev),
+                torch.tensor(parent, dtype=i32, device=dev), scale_factor=sf, n_levels=nl)
+
+        # keyframe 1: the stored init frame at the identity
+        slot1 = self._free_kf_slot()
+        self.ms = kf(slot1, self._init_frame, torch.eye(4, device=dev), self.st.frame_id - 1,
+                     self._init_ts, -1)
+        # keyframe 2: this frame, with the triangulated points bound to it
+        slot2 = self._free_kf_slot()
+        self.ms = kf(slot2, frame, T2, self.st.frame_id, timestamp, slot1)
+        # X1 is in KF1's camera frame, which is the world frame
+        self.ms, ids = M.create_points(self.ms, slot2, inl & valid, X1)
+        # bind KF1's observations through the match mapping
+        created = ids >= 0
+        s1 = torch.tensor(slot1, device=dev)
+        row1 = scatter_set(take(self.ms.kf_mp, s1), torch.where(created, q, self.ms.N),
+                           torch.where(created, ids, torch.full_like(ids, -1)))
+        self.ms = M.finalize_point_statistics(self.ms._replace(kf_mp=put(self.ms.kf_mp, s1, row1)),
+                                              sf, nl)
+        # full BA on the two-view map
+        self.ms = ba.global_ba(self.cam, self.ms, fixed_kf=slot1, scale_factor=sf, iters=20)
+
+        st = self.st
+        T_kf2 = self.ms.kf_Tcw[slot2]
+        st.last_assoc = self.ms.kf_mp[slot2]
+        st.last_kf_slot = slot2
+        st.T_last = T_kf2.cpu().numpy()
+        st.last_ts = timestamp
+        st.last_frame = frame
+        st.status = "OK"
+        st.frames_since_kf = 0
+        st.ref_kf_inliers = int((st.last_assoc >= 0).sum())
+        self._start_device_state(slot2, T_kf2, timestamp)
+        self._init_frame = None

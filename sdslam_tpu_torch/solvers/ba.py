@@ -3,10 +3,11 @@
 
 Edges live in observation-major [Mo, P] planes. Per LM iteration the edge
 pass, the per-point 3x3 elimination and the per-camera Schur-factor scatter
-run in kernel K3 (kernels/ba_schur_kernel.py); the per-camera sums,
-S = Hcc - Z Z^T and the dense [6K, 6K] Cholesky stay torch.matmul /
-torch.linalg (they are XLA matmuls and LAPACK in the JAX package). Fixed
-cameras stay in the system under a huge diagonal prior (static shapes).
+run in kernel K3 (kernels/ba_schur_kernel.py); the per-camera sums and
+S = Hcc - Z Z^T stay torch.matmul (XLA matmuls in the JAX package). The
+dense [6K, 6K] Cholesky solve runs in kernel K6 (kernels/chol_kernel.py)
+up to its N_MAX and in torch.linalg above it. Fixed cameras stay in the
+system under a huge diagonal prior (static shapes).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from sdslam_tpu_torch._util import scatter_set, scatter_set2, topk_stable
 from sdslam_tpu_torch.geometry import lie
 from sdslam_tpu_torch.geometry.camera import CameraModel
 from sdslam_tpu_torch.kernels import ba_schur_kernel as bsk
+from sdslam_tpu_torch.kernels import chol_kernel as chol
 from sdslam_tpu_torch.mapping import map_state as M
 from sdslam_tpu_torch.solvers.ba_const import (  # noqa: F401 (re-exported)
     CHI2_MONO, CHI2_STEREO, FIXED_PRIOR, HUBER_MONO, HUBER_STEREO,
@@ -117,7 +119,8 @@ def _schur_S_from_ze(Ze, cam_onehot, K: int):
 
 def _apply_prior_and_solve(S0, bs, cam_active, lm_lambda, K: int):
     """Trace-scaled damping / fixed-camera prior on the reduced system,
-    then the dense Cholesky solve for the camera step."""
+    then the dense Cholesky solve for the camera step (kernel K6 when the
+    system fits it, decided from the shape alone)."""
     S4 = S0.reshape(K, 6, K, 6)
     KI = torch.arange(K, device=S0.device)
     tr_S = torch.diagonal(S4[KI, :, KI, :], dim1=-2, dim2=-1).sum(-1)
@@ -125,8 +128,9 @@ def _apply_prior_and_solve(S0, bs, cam_active, lm_lambda, K: int):
     prior = torch.where(cam_active, lm_lambda * diag_scale,
                         torch.full_like(diag_scale, FIXED_PRIOR))
     S = S0 + torch.diag(prior.repeat_interleave(6))
-    L, _ = torch.linalg.cholesky_ex(S)
-    dc = torch.cholesky_solve(bs.reshape(K * 6, 1), L).reshape(K, 6)
+    # K6 up to its shared-memory bound; the library factor and solve above
+    solve = chol.chol_solve_dense if 6 * K <= chol.N_MAX else chol.chol_solve_dense_plain
+    dc = solve(S, bs.reshape(K * 6)).reshape(K, 6)
     return dc * cam_active[:, None]
 
 

@@ -1,12 +1,14 @@
-"""System facade: the public API of the port (the RGB-D part of
-sdslam_tpu/system.py).
+"""System facade: the public API of the port (sdslam_tpu/system.py's
+tracking, loop-closing and mode parts).
 
-`SDSlamSystem(cfg, sensor=RGBD, loop_closing=True, device="cuda")` tracks
-frames with `track_rgbd`; after each frame the new keyframes go to the loop
-closer (detection dispatched without a host sync, results drained once
-their copies land) and an accepted correction re-anchors the tracker.
-No threads: tracking, mapping and loop closing run in sequence on one
-stream.
+`SDSlamSystem(cfg, sensor=MONOCULAR, loop_closing=True, device="cuda")`
+routes frames by sensor: `track_monocular(img, ts)`, `track_rgbd(img,
+depth, ts)` and `track_fusion(img, [gx, gy, gz, ax, ay, az], ts)`. After
+each frame the new keyframes go to the loop closer (detection dispatched
+without a host sync, results drained once their copies land) and an
+accepted correction re-anchors the tracker. Monocular maps close loops
+with a 7-DoF Sim3 (scale drifts), RGB-D maps with a fixed scale. No
+threads: tracking, mapping and loop closing run in sequence on one stream.
 """
 
 from __future__ import annotations
@@ -15,28 +17,21 @@ import numpy as np
 
 from sdslam_tpu_torch import _device
 from sdslam_tpu_torch.pipeline.loop_closing import LoopCloser
-from sdslam_tpu_torch.pipeline.tracking import RGBDTracker
+from sdslam_tpu_torch.pipeline.sensors import IMUStateEKF
+from sdslam_tpu_torch.pipeline.tracking import MonoTracker, RGBDTracker
 from sdslam_tpu_torch.utils.config import SystemConfig
 
 MONOCULAR = "monocular"
 RGBD = "rgbd"
 MONOCULAR_IMU = "monocular_imu"
 
-# sensors of the JAX package that the port has not reached yet
-_NOT_PORTED = {
-    MONOCULAR: "ROADMAP.md M13 (monocular)",
-    MONOCULAR_IMU: "ROADMAP.md M13 and M15 (monocular, IMU fusion)",
-}
-
 
 class SDSlamSystem:
     """Facade over the tracking / mapping / loop-closing pipeline."""
 
-    def __init__(self, config: SystemConfig, sensor: str = RGBD, loop_closing: bool = True,
+    def __init__(self, config: SystemConfig, sensor: str = MONOCULAR, loop_closing: bool = True,
                  device="cuda"):
-        if sensor in _NOT_PORTED:
-            raise NotImplementedError(f"sensor {sensor!r} is not ported yet: {_NOT_PORTED[sensor]}")
-        if sensor != RGBD:
+        if sensor not in (MONOCULAR, RGBD, MONOCULAR_IMU):
             raise ValueError(f"unknown sensor type: {sensor}")
         self.config = config
         self.sensor = sensor
@@ -46,16 +41,44 @@ class SDSlamSystem:
         self.localization_only = False
 
     def _build(self):
-        self.tracker = RGBDTracker(self.config, device=self.device)
+        tracker = RGBDTracker if self.sensor == RGBD else MonoTracker
+        self.tracker = tracker(self.config, device=self.device)
+        # host mirror of the fusion sensor's IMU filter (introspection only:
+        # the tracker's step runs the filter on the device)
+        self.imu = IMUStateEKF() if self.sensor == MONOCULAR_IMU else None
         self.loop_closer = LoopCloser(cam=self.config.camera,
                                       scale_factor=self.config.orb.scale_factor,
-                                      n_levels=self.config.orb.n_levels, fix_scale=True)
+                                      n_levels=self.config.orb.n_levels,
+                                      fix_scale=self.sensor == RGBD)
         # every info dict the loop closer returned, in order (detections,
         # verifications, corrections)
         self.loop_infos = []
 
+    def track_monocular(self, image, timestamp: float) -> np.ndarray:
+        assert self.sensor == MONOCULAR, "system built for another sensor"
+        pose = self.tracker.track(image, timestamp)
+        self._after_frame()
+        return pose
+
     def track_rgbd(self, image, depth, timestamp: float) -> np.ndarray:
+        assert self.sensor == RGBD, "system built for another sensor"
         pose = self.tracker.track(image, depth, timestamp)
+        self._after_frame()
+        return pose
+
+    def track_fusion(self, image, measurements, timestamp: float) -> np.ndarray:
+        """Monocular + IMU: measurements = [gx, gy, gz, ax, ay, az]. The
+        sample rides this frame's step, where the device filter fuses it
+        with the frame's tracked pose; the host mirror `self.imu` fuses
+        the last drained pose."""
+        assert self.sensor == MONOCULAR_IMU, "system built for another sensor"
+        m = np.asarray(measurements, float).reshape(-1)
+        dt = max(timestamp - self.tracker.st.last_ts, 1e-3)
+        self.tracker.inject_imu(m[:3], m[3:6])
+        if self.tracker.st.status != "NOT_INITIALIZED" and self.tracker.st.T_last is not None:
+            self.imu.predict(dt)
+            self.imu.update(np.asarray(self.tracker.st.T_last), m[:3], m[3:6], dt)
+        pose = self.tracker.track(image, timestamp)
         self._after_frame()
         return pose
 

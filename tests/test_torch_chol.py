@@ -1,0 +1,69 @@
+"""K6 (dense SPD Cholesky factor + solve): the port's chol_solve_dense on
+the CPU (its plain version) against sdslam_tpu's Pallas kernel in
+interpret mode, as tests/test_pallas_kernels.py runs it, and against
+jax.scipy's cho_solve beyond the Pallas kernel's interpret-mode sizes; and
+the gate in solvers/ba.py that sends 6K <= N_MAX to the kernel and larger
+systems to the library."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sdslam_tpu.ops.pallas import chol_kernel as jchol
+from sdslam_tpu_torch.kernels import chol_kernel as tchol
+from sdslam_tpu_torch.solvers import ba as tba
+
+RTOL, ATOL = 2e-4, 2e-5
+
+
+def _spd(n, seed):
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(n, n)).astype(np.float32)
+    return (A @ A.T + n * np.eye(n, dtype=np.float32)).astype(np.float32), \
+        rng.normal(size=n).astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [30, 144])
+def test_chol_solve_matches_pallas_interpret(n):
+    """N = 30 takes the Pallas wrapper's padding path, N = 144 is local
+    BA's reduced system (24 keyframes x 6)."""
+    S, b = _spd(n, n)
+    before = tchol.LAUNCHES
+    x = tchol.chol_solve_dense(torch.from_numpy(S), torch.from_numpy(b))
+    assert tchol.LAUNCHES == before  # CPU tensors take the plain version
+    ref = np.asarray(jchol.chol_solve_dense(jnp.asarray(S), jnp.asarray(b), interpret=True))
+    np.testing.assert_allclose(x.numpy(), ref, rtol=RTOL, atol=ATOL)
+
+
+def test_chol_solve_matches_cho_solve_at_384():
+    S, b = _spd(384, 384)
+    x = tchol.chol_solve_dense(torch.from_numpy(S), torch.from_numpy(b))
+    c = jax.scipy.linalg.cho_factor(jnp.asarray(S), lower=True)
+    ref = np.asarray(jax.scipy.linalg.cho_solve(c, jnp.asarray(b)))
+    np.testing.assert_allclose(x.numpy(), ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("K", [24, tchol.N_MAX // 6 + 1])
+def test_ba_solve_gate(K, monkeypatch):
+    """solvers/ba.py solves [6K, 6K] with the kernel's wrapper up to N_MAX
+    and with the library above it, decided from the shape alone; both give
+    the library's numbers on the CPU."""
+    calls = []
+    wrapper = tchol.chol_solve_dense
+    monkeypatch.setattr(tchol, "chol_solve_dense",
+                        lambda S, b: calls.append(S.shape[0]) or wrapper(S, b))
+    rng = np.random.default_rng(K)
+    A = rng.normal(size=(6 * K, 6 * K)).astype(np.float32)
+    S0 = torch.from_numpy(A @ A.T + 6 * K * np.eye(6 * K, dtype=np.float32))
+    bs = torch.from_numpy(rng.normal(size=(K, 6)).astype(np.float32))
+    cam_active = torch.from_numpy(np.arange(K) > 0)
+    dc = tba._apply_prior_and_solve(S0, bs, cam_active, torch.tensor(1e-4), K)
+    assert calls == ([6 * K] if 6 * K <= tchol.N_MAX else [])
+    assert dc.shape == (K, 6) and torch.all(dc[0] == 0)
+    prior = torch.where(cam_active, 1e-4 * torch.clamp(
+        torch.diagonal(S0).reshape(K, 6).sum(1) / 6.0, min=1e-6), torch.tensor(tba.FIXED_PRIOR))
+    S = S0 + torch.diag(prior.repeat_interleave(6))
+    ref = tchol.chol_solve_dense_plain(S, bs.reshape(-1)).reshape(K, 6) * cam_active[:, None]
+    torch.testing.assert_close(dc, ref, rtol=0, atol=0)

@@ -1,7 +1,8 @@
 """The slice as a whole: the port's SDSlamSystem (RGB-D, loop closing on)
-against sdslam_tpu's on a 16-frame orbit at test size, and the repair of
-the entry points' default device: they run on the card unless the caller
-asks for the CPU, and without a card the default raises.
+against sdslam_tpu's on a 16-frame orbit at test size; the sensors the
+facade builds (monocular by default, as in the JAX package); and the
+entry points' default device: they run on the card unless the caller asks
+for the CPU, and without a card the default raises.
 """
 
 import numpy as np
@@ -13,7 +14,7 @@ from sdslam_tpu.io import synthetic as jsyn
 from sdslam_tpu_torch import system as tsystem
 from sdslam_tpu_torch.io import synthetic as tsyn
 from sdslam_tpu_torch.mapping import map_state as TM
-from sdslam_tpu_torch.pipeline.tracking import RGBDTracker
+from sdslam_tpu_torch.pipeline.tracking import MonoTracker, RGBDTracker
 from sdslam_tpu_torch.utils import metrics
 from test_torch_relocalization import JCAM, ORBIT, TCAM, jax_cfg, port_cfg
 
@@ -42,10 +43,27 @@ def test_sdslam_system_rgbd_parity():
     assert metrics.ate_rmse(et, np.asarray(seq.poses), align=False) < 0.02
 
 
-def test_system_sensors_not_ported_raise():
-    for sensor in (tsystem.MONOCULAR, tsystem.MONOCULAR_IMU):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsystem.SDSlamSystem(port_cfg(), sensor=sensor, device="cpu")
+def test_sensor_type_enforced():
+    """tests/test_system.py's case: a frame of another sensor raises, and
+    so does an unknown sensor."""
+    sysm = tsystem.SDSlamSystem(port_cfg(), sensor=tsystem.MONOCULAR, device="cpu")
+    with pytest.raises(AssertionError):
+        sysm.track_rgbd(np.zeros((240, 320)), np.zeros((240, 320)), 0.0)
+    with pytest.raises(ValueError):
+        tsystem.SDSlamSystem(port_cfg(), sensor="stereo", device="cpu")
+
+
+def test_default_sensor_is_monocular():
+    """The JAX package's facade defaults to the monocular sensor; so does
+    the port's, and every sensor builds."""
+    assert isinstance(tsystem.SDSlamSystem(port_cfg(), device="cpu").tracker, MonoTracker)
+    assert jsystem.SDSlamSystem.__init__.__defaults__[0] == tsystem.MONOCULAR
+    for sensor, tracker in ((tsystem.RGBD, RGBDTracker), (tsystem.MONOCULAR, MonoTracker),
+                            (tsystem.MONOCULAR_IMU, MonoTracker)):
+        sysm = tsystem.SDSlamSystem(port_cfg(), sensor=sensor, device="cpu")
+        assert type(sysm.tracker) is tracker
+        assert sysm.loop_closer.fix_scale == (sensor == tsystem.RGBD)
+        assert (sysm.imu is not None) == (sensor == tsystem.MONOCULAR_IMU)
 
 
 @pytest.mark.parametrize("entry", ["RGBDTracker", "SDSlamSystem", "init_map",

@@ -105,9 +105,11 @@ def test_one_step_on_carried_state(jax_runs):
     tp.ms = interop.map_state_from_numpy(ms_np)
     tp.dst = interop.device_state_from_numpy(dst_np)
     back = interop.device_state_to_numpy(tp.dst)
-    pairs = [(dst_np["ekf"][f], back["ekf"][f]) for f in back["ekf"]]
-    pairs += [(dst_np[k], back[k]) for k in back if k != "ekf"]
-    for a, b in pairs:  # every field but the JAX IMU filter, which the port lacks
+    filters = ("ekf", "imu")
+    pairs = [(dst_np[k][f], back[k][f]) for k in filters for f in back[k]]
+    pairs += [(dst_np[k], back[k]) for k in back if k not in filters]
+    assert set(back) == set(dst_np) and set(back["imu"]) == set(dst_np["imu"])
+    for a, b in pairs:  # every field, the IMU filter's included, both ways
         np.testing.assert_array_equal(a, b, strict=True)
     tp.st.status = "OK"
     tp.st.frame_id = CARRY_AT
