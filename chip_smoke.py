@@ -6,7 +6,8 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
 
 Phases (each prints one JSON line; any failure raises and exits nonzero):
   1. device   card name / power limit (nvidia-smi), torch name, capability
-  2. build    nvcc for every kernel source, all in parallel
+  2. build    nvcc for every kernel source, all in parallel; then each
+              compiled function's registers, shared memory and spills
   3. kernels  each CUDA kernel against its plain PyTorch version on the
               card at main-path shapes, with median times (CUDA events),
               the least time the card could take (bound) and, where one
@@ -38,6 +39,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import time
@@ -247,6 +249,56 @@ def _gn_inputs(dev, level: int, B: int = 256, n_pts: int = 1024, n_refs: int = 8
             ok.contiguous(), cam.fx * s, cam.fy * s, cam.cx * s, cam.cy * s)
 
 
+PTXAS_FN = re.compile(r"(?:Compiling entry function|Function properties for) '?(\w+)'?")
+PTXAS_NUM = re.compile(r"(\d+) (registers|bytes smem|bytes stack frame|bytes spill stores|"
+                       r"bytes spill loads)")
+
+
+def ptxas_summary(log: str):
+    """Per compiled function of one nvcc -Xptxas -v log: registers, static
+    shared memory, stack frame and spill bytes."""
+    keys = {"registers": "registers", "bytes smem": "smem_bytes",
+            "bytes stack frame": "stack_bytes", "bytes spill stores": "spill_store_bytes",
+            "bytes spill loads": "spill_load_bytes"}
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = PTXAS_FN.search(ln)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is not None:
+            for num, what in PTXAS_NUM.findall(ln):
+                cur[keys[what]] = int(num)
+    return out
+
+
+def _spd_system(dev, N: int):
+    """A random SPD [N, N] system from SEED (A A^T + N I)."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 5 + N)
+    A = torch.randn(N, N, generator=g)
+    S = (A @ A.T + N * torch.eye(N)).to(dev).contiguous()
+    return S, torch.randn(N, generator=g).to(dev)
+
+
+def _ba_system(dev, K: int, n_fixed: int = 2, lm_lambda: float = 1e-4):
+    """Local BA's reduced camera system [6K, 6K], made on the card from
+    SEED as tests/test_torch_chol.py makes it: a Schur-like SPD S0, then
+    solvers/ba.py's diagonal: FIXED_PRIOR on the first n_fixed cameras,
+    lm_lambda x (the camera block's trace / 6) on the others."""
+    from sdslam_tpu_torch.solvers.ba_const import FIXED_PRIOR
+
+    n = 6 * K
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    A = torch.randn(n, n, generator=g, device=dev)
+    S0 = A @ A.T + n * torch.eye(n, device=dev)
+    tr = torch.diagonal(S0).reshape(K, 6).sum(1)
+    active = torch.arange(K, device=dev) >= n_fixed
+    prior = torch.where(active, lm_lambda * torch.clamp(tr / 6.0, min=1e-6),
+                        torch.full_like(tr, FIXED_PRIOR))
+    S = (S0 + torch.diag(prior.repeat_interleave(6))).contiguous()
+    return S, torch.randn(n, generator=g, device=dev)
+
+
 def main_camera():
     from sdslam_tpu_torch.geometry.camera import CameraModel
 
@@ -341,34 +393,51 @@ def phase_kernels(dev):
     emit("kernel", name="hamming", tol="exact", cases=cases)
     rows["hamming"] = cases
 
-    # K1: T within 1e-4 at levels 4, 3, 2; chi2 within 1e-4 relative and
-    # n_px equal, since the tracker gates alignment on both
+    # K1: T within 1e-4 (its bottom row exactly [0, 0, 0, 1]), chi2 within
+    # 1e-4 relative, n_px equal (the tracker gates alignment on both) and
+    # the kernel's own GN iteration count equal to the plain loop's. Levels
+    # 4, 3, 2 of the main path at N = 1024; level 2 at a ragged N = 1000
+    # (the cluster's last CTA masked); level 1 (320x240), larger than the
+    # shared-memory staging budget (the image read through the read-only
+    # cache); level 2 at N = 1024, the main path's finest call, last
     cases = []
-    for level in (4, 3, 2):
-        args = _align_inputs(dev, level)
-        T, chi2, n = ak.align_level(*args)
+    for level, n_pts in ((4, 1024), (3, 1024), (1, 1024), (2, 1000), (2, 1024)):
+        args = _align_inputs(dev, level, n_pts)
+        out = ak._launch(*args)
+        T, chi2, n = ak._views(out)
         # the plain loop runs the kernel's GN iterations; with the final
         # chi2 evaluation the kernel evaluates the terms n_iter + 1 times.
         # Bytes: the image, X, the masks, Hinv, T_init and J and the patch
         # of the taps valid at the final iterate (a lower bound on the taps
-        # any iterate reads), and the 16-float output
+        # any iterate reads), and the 20-word output
         Tp, chi2p, np_, n_iter = ak.align_level_steps(*args)
         img, X, _, _, okpx, Hinv, T_init = args[:7]
         N = X.shape[0]
-        bms, by = bound(nbytes(img, X, okpx, Hinv, T_init) + int(np_) * TAP_BYTES + 16 * 4,
+        H, W = img.shape
+        bms, by = bound(nbytes(img, X, okpx, Hinv, T_init, out) + int(np_) * TAP_BYTES,
                         (n_iter + 1) * (N * PROJ_FLOP + int(np_) * TAP_FLOP))
         torch.cuda.synchronize()
         err, chi2_rel = _max_abs(T, Tp), _rel(chi2, chi2p)
-        if not (err <= 1e-4 and chi2_rel <= 1e-4 and int(n) == int(np_)):
-            raise AssertionError(f"align level {level}: |T - T_plain| = {err}, chi2 rel "
-                                 f"{chi2_rel}, n_px {int(n)} vs {int(np_)}")
-        cases.append({"level": level, "hw": list(args[0].shape), "max_abs_err": err,
+        k_iter = int(ak._iterations(out))
+        row3 = T[3].tolist() == [0.0, 0.0, 0.0, 1.0]
+        if not (err <= 1e-4 and chi2_rel <= 1e-4 and int(n) == int(np_) and k_iter == n_iter
+                and row3):
+            raise AssertionError(f"align level {level} N={N}: |T - T_plain| = {err}, chi2 rel "
+                                 f"{chi2_rel}, n_px {int(n)} vs {int(np_)}, GN iterations "
+                                 f"{k_iter} vs {n_iter}, bottom row {T[3].tolist()}")
+        cases.append({"level": level, "N": N, "hw": [H, W], "max_abs_err": err,
                       "chi2": float(chi2), "chi2_plain": float(chi2p), "chi2_rel_err": chi2_rel,
-                      "n_px": int(n), "n_px_plain": int(np_), "gn_iterations": n_iter,
+                      "n_px": int(n), "n_px_plain": int(np_), "gn_iterations": k_iter,
+                      "gn_iterations_plain": n_iter,
+                      "image_staged": ak._image_staged(N, H, W),
                       "ms": median_ms(lambda: ak.align_level(*args)),
                       "plain_ms": median_ms(lambda: ak.align_level_plain(*args), reps=20),
                       "bound_ms": bms, "bound_by": by, "library_ms": None})
-    emit("kernel", name="align_level", tol="T 1e-4 abs, chi2 1e-4 rel, n_px equal", cases=cases)
+    if {c["image_staged"] for c in cases} != {True, False}:
+        raise AssertionError("align_level cases miss one of the two image paths")
+    emit("kernel", name="align_level",
+         tol="T 1e-4 abs (bottom row exact), chi2 1e-4 rel, n_px and GN iterations equal",
+         cases=cases)
     rows["align_level"] = cases
 
     # K2: T within 1e-4, inlier masks equal, the kernel's own inlier count
@@ -466,16 +535,16 @@ def phase_kernels(dev):
 
     # K6: x within rtol 2e-4 / atol 2e-5 of the plain version (the library
     # factor and solve, which is also the library yardstick) and a relative
-    # residual |Sx - b| / |b| <= 1e-4, at the kernel's largest N and at
-    # local BA's [144, 144] (last: the kernel table's row)
+    # residual |Sx - b| / |b| <= 1e-4: random SPD systems at N = 30 and 228
+    # (ragged last panels), the kernel's largest N, local BA's reduced
+    # camera system at K = 24 (two fixed cameras under the 1e12 prior, the
+    # others under the trace-scaled LM damping), and a random [144, 144]
+    # last (the kernel table's row)
     from sdslam_tpu_torch.kernels import chol_kernel as ck
 
     cases = []
-    for N in (ck.N_MAX, 144):
-        g = torch.Generator(device="cpu").manual_seed(SEED + 5 + N)
-        A = torch.randn(N, N, generator=g)
-        S = (A @ A.T + N * torch.eye(N)).to(dev).contiguous()
-        b = torch.randn(N, generator=g).to(dev)
+    for N, system in ((30, "spd"), (228, "spd"), (ck.N_MAX, "spd"), (144, "ba"), (144, "spd")):
+        S, b = _ba_system(dev, N // 6) if system == "ba" else _spd_system(dev, N)
         x = ck.chol_solve_dense(S, b)
         xp = ck.chol_solve_dense_plain(S, b)
         torch.cuda.synchronize()
@@ -483,11 +552,11 @@ def phase_kernels(dev):
         excess = float(((x - xp).abs() - (2e-5 + 2e-4 * xp.abs())).max())
         resid = float((S.double() @ x.double() - b.double()).norm() / b.double().norm())
         if not (excess <= 0.0 and resid <= 1e-4):
-            raise AssertionError(f"chol_solve N={N}: |x - x_plain| = {err} (over tol by "
-                                 f"{excess}), residual {resid}")
+            raise AssertionError(f"chol_solve N={N} {system}: |x - x_plain| = {err} (over tol "
+                                 f"by {excess}), residual {resid}")
         bms, by = bound(nbytes(S, b, x), chol_flop(N))
         plain_ms = median_ms(lambda: ck.chol_solve_dense_plain(S, b))
-        cases.append({"N": N, "max_abs_err": err, "residual": resid,
+        cases.append({"N": N, "system": system, "max_abs_err": err, "residual": resid,
                       "ms": median_ms(lambda: ck.chol_solve_dense(S, b)),
                       "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                       "library_ms": plain_ms})
@@ -1044,9 +1113,9 @@ def main():
 
     t0 = time.perf_counter()
     logs = _build.build()
-    emit("build", seconds=time.perf_counter() - t0,
-         ptxas={k: [ln for ln in v.splitlines() if "registers" in ln or "spill" in ln]
-                for k, v in logs.items()})
+    emit("build", seconds=time.perf_counter() - t0)
+    # registers, shared memory and spills of every compiled function
+    emit("ptxas", **{k: ptxas_summary(v) for k, v in logs.items()})
 
     seconds = {}
     t0 = time.perf_counter()
@@ -1075,6 +1144,7 @@ def main():
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             **{k: last[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "cases": [{k: c[k] for k in c if k in ("shape", "level", "K", "N", "E", "prior_rad",
+                                                   "system",
                                                    "ms", "plain_ms", "bound_ms", "bound_by",
                                                    "library_ms")}
                       for c in cases],

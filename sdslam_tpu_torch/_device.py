@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 MIN_CAPABILITY = (9, 0)
+_CAPABLE = set()  # indices of the CUDA devices found capable (asked once each)
 
 
 def resolve(device) -> torch.device:
@@ -30,21 +31,24 @@ def resolve(device) -> torch.device:
 def use_kernel(*tensors: torch.Tensor) -> bool:
     """True when every tensor is on a Hopper-class CUDA device, False when
     every tensor is on the CPU; raises on mixed or unsupported devices."""
+    if all(t.is_cuda for t in tensors):
+        idx = {t.get_device() for t in tensors}
+        if len(idx) != 1:
+            raise ValueError(f"tensors on several CUDA devices: {sorted(idx)}")
+        (i,) = idx
+        if i not in _CAPABLE:
+            cap = torch.cuda.get_device_capability(i)
+            if cap < MIN_CAPABILITY:
+                raise RuntimeError(
+                    f"CUDA kernels need compute capability >= {MIN_CAPABILITY}, "
+                    f"device has {cap}"
+                )
+            _CAPABLE.add(i)
+        return True
     types = {t.device.type for t in tensors}
     if types == {"cpu"}:
         return False
-    if types != {"cuda"}:
-        raise ValueError(f"tensors on unsupported/mixed devices: {sorted(types)}")
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on several CUDA devices: {devs}")
-    cap = torch.cuda.get_device_capability(next(iter(devs)))
-    if cap < MIN_CAPABILITY:
-        raise RuntimeError(
-            f"CUDA kernels need compute capability >= {MIN_CAPABILITY}, "
-            f"device has {cap}"
-        )
-    return True
+    raise ValueError(f"tensors on unsupported/mixed devices: {sorted(types)}")
 
 
 def stream_ptr(t: torch.Tensor) -> int:
@@ -57,10 +61,11 @@ def check_tensor(name: str, t: torch.Tensor, dtype, shape=None):
     contiguous — what a raw-pointer kernel can take."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, kernel takes {dtype}")
-    if shape is not None:
-        if t.dim() != len(shape) or any(
-            s is not None and s != d for s, d in zip(shape, t.shape)
-        ):
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, kernel takes {shape}")
+    # a shape without free entries compares whole (the common, fast case)
+    if shape is not None and t.shape != shape and (
+        t.dim() != len(shape)
+        or any(s is not None and s != d for s, d in zip(shape, t.shape))
+    ):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, kernel takes {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: kernel takes a contiguous tensor")

@@ -18,7 +18,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 from sdslam_tpu_torch.solvers import ba_const
 
@@ -37,6 +37,7 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[Tuple[str, str], object] = {}
 
 
 def nvcc_path() -> str:
@@ -99,10 +100,15 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def bind(name: str, symbol: str, argtypes):
-    """ctypes function `symbol` of library `name`, returning int."""
-    fn = getattr(load(name), symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    """ctypes function `symbol` of library `name`, returning int. Bound
+    once per (library, symbol): later calls return the same function
+    without setting its argtypes again."""
+    fn = _FNS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FNS[(name, symbol)] = fn
     return fn
 
 

@@ -4,7 +4,9 @@ Port of sdslam_tpu/ops/pallas/align_kernel.py::align_level. The plain
 version is the per-iteration XLA loop of
 sdslam_tpu/solvers/image_align.py:_align_level (fused=False), with the
 damped Hessian inverse Hinv precomputed by the caller as the fused path
-does.
+does. The kernel runs a level on a cluster of 8 CTAs and writes its
+outputs finished (`_views` of the buffer `_launch` returns; `_iterations`
+reads the number of GN iterations it ran).
 """
 
 from __future__ import annotations
@@ -21,6 +23,12 @@ from sdslam_tpu_torch.ops import sample
 LAUNCHES = 0
 PATCH_HALF = 2
 PATCH = (2 * PATCH_HALF) ** 2
+# the kernel's output, 20 words: T [4,4], chi2, then n_px and the GN
+# iterations as int32, one word unused
+OUT_SHAPE = (5, 4)
+# the most points a launch takes: each of the cluster's 8 CTAs keeps its
+# share's J, patch, mask and X in shared memory (AL_N_MAX in the source)
+N_MAX = 3872
 
 
 def gn_terms(img, X_ref, ref_patch, J, okpx, T, fx, fy, cx, cy):
@@ -77,6 +85,32 @@ def align_level(img, X_ref, ref_patch, J, okpx, Hinv, T_init,
     if not _device.use_kernel(img, X_ref, ref_patch, J, okpx, Hinv, T_init):
         return align_level_plain(img, X_ref, ref_patch, J, okpx, Hinv, T_init,
                                  fx, fy, cx, cy, iters)
+    return _views(_launch(img, X_ref, ref_patch, J, okpx, Hinv, T_init, fx, fy, cx, cy, iters))
+
+
+def _views(out: torch.Tensor):
+    """The kernel's output [5, 4] as (T [4,4] f32, chi2 0-d f32, n_px 0-d
+    int32): views, no copy. The kernel writes T whole, bottom row
+    [0, 0, 0, 1] included, then chi2, n_px and the GN iterations, the
+    counts as int32."""
+    return out[:4], out[4, 0], out.view(torch.int32)[4, 1]
+
+
+def _iterations(out: torch.Tensor) -> torch.Tensor:
+    """The GN iterations (0-d int32) the launch that wrote `out` ran."""
+    return out.view(torch.int32)[4, 2]
+
+
+def _image_staged(N: int, H: int, W: int) -> bool:
+    """Whether a launch at these sizes stages the level image in shared
+    memory (else the kernel reads it through the read-only cache)."""
+    return bool(_build.bind("align_level", "sd_align_level_image_staged",
+                            [ctypes.c_int] * 3)(N, H, W))
+
+
+def _launch(img, X_ref, ref_patch, J, okpx, Hinv, T_init,
+            fx: float, fy: float, cx: float, cy: float, iters: int) -> torch.Tensor:
+    """One kernel launch on CUDA tensors; returns its output buffer."""
     N = X_ref.shape[0]
     H, W = img.shape
     if H < 2 or W < 2:
@@ -88,7 +122,12 @@ def align_level(img, X_ref, ref_patch, J, okpx, Hinv, T_init,
     _device.check_tensor("okpx", okpx, torch.bool, (N, PATCH))
     _device.check_tensor("Hinv", Hinv, torch.float32, (6, 6))
     _device.check_tensor("T_init", T_init, torch.float32, (4, 4))
-    out = torch.empty(16, dtype=torch.float32, device=img.device)
+    if N > N_MAX:
+        raise ValueError(f"align_level: N = {N} > N_MAX = {N_MAX}")
+    if J.data_ptr() % 16 or ref_patch.data_ptr() % 16 or okpx.data_ptr() % 4:
+        raise ValueError("align_level: the kernel reads J and ref_patch as float4s (16-byte "
+                         "aligned) and okpx by words (4-byte aligned)")
+    out = torch.empty(OUT_SHAPE, dtype=torch.float32, device=img.device)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = _build.bind(
         "align_level", "sd_align_level",
@@ -101,6 +140,4 @@ def align_level(img, X_ref, ref_patch, J, okpx, Hinv, T_init,
     _build.check(rc, "sd_align_level")
     global LAUNCHES
     LAUNCHES += 1
-    T = torch.eye(4, device=img.device)
-    T[:3] = out[:12].view(3, 4)
-    return T, out[12], out[13].to(torch.int32)
+    return out

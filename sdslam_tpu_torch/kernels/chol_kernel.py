@@ -6,8 +6,11 @@ camera system of local BA ([144, 144] at 24 local keyframes) with this
 kernel whenever 6K <= N_MAX (solvers/ba.py::_apply_prior_and_solve).
 
 N_MAX is the port's own bound, not the Pallas kernel's 384: the kernel
-keeps the whole S in one block's shared memory (N*N + 2N floats), and an
-H100 block gets at most 232,448 bytes, so N <= 232. Larger systems (global
+keeps the whole S in one block's shared memory (N rows at an odd stride,
+N*(N|1) + 2N floats: 218,080 bytes at 232), and an H100 block gets at
+most 232,448 bytes, so N <= 232 (CS_N_MAX in the source). The kernel is a
+blocked right-looking factorization in panels of 16 columns with blocked
+substitutions (csrc/chol_solve.cu). Larger systems (global
 BA at 256 slots is [1536, 1536]) keep the library factor and solve, as the
 JAX package's gate does beyond its N_MAX. The gate reads shapes only.
 """
@@ -50,3 +53,4 @@ def chol_solve_dense(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     global LAUNCHES
     LAUNCHES += 1
     return x
+

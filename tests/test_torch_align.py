@@ -1,6 +1,10 @@
 """Direct image alignment: the port's image_align.align (kernel K1's plain
 version on the CPU) against sdslam_tpu's align(fused=False) XLA loop on a
-rendered frame pair."""
+rendered frame pair; one level (align_level) against the JAX level loop
+_align_level, at full and ragged point counts; and the kernel's output
+contract (the views the wrapper returns)."""
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +18,7 @@ from sdslam_tpu.io import synthetic as jsyn
 from sdslam_tpu.ops import pyramid as jpyr
 from sdslam_tpu.solvers import image_align as jia
 from sdslam_tpu.utils.config import ORBConfig
+from sdslam_tpu_torch.kernels import _build
 from sdslam_tpu_torch.kernels import align_kernel as tak
 from sdslam_tpu_torch.solvers import image_align as tia
 
@@ -23,11 +28,17 @@ CAM = jcam.CameraModel(fx=320.0, fy=320.0, cx=159.5, cy=119.5, width=320, height
 
 
 @pytest.fixture(scope="module")
-def pair():
+def rendered():
     seq = jsyn.SyntheticSequence(CAM, n_frames=16, trajectory="orbit", radius=0.06,
                                  yaw_amp=0.04)
     _, img0, dep0 = seq.frame(0)
     _, img1, _ = seq.frame(2)
+    return seq, img0, dep0, img1
+
+
+@pytest.fixture(scope="module")
+def pair(rendered):
+    seq, img0, dep0, img1 = rendered
     ext = ORBExtractor(CAM, ORBConfig(max_keypoints=512, n_levels=4))
     feats, pyr0, d, _ = ext._run_depth(img0, dep0, 1.0)
     pyr1 = jpyr.build_pyramid(img1, 4)
@@ -93,3 +104,82 @@ def test_level_plain_matches_wrapper_on_cpu(pair):
     assert tak.LAUNCHES == before  # no kernel launch for CPU tensors
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+def _level_inputs(rendered, n_pts, level=2, seed=3):
+    """One level's IC-LK inputs for n_pts random points of frame 0 (depth
+    from the render), as the port precomputes them."""
+    seq, img0, dep0, img1 = rendered
+    rng = np.random.default_rng(seed)
+    uv = np.stack([rng.uniform(20, CAM.width - 20, n_pts),
+                   rng.uniform(20, CAM.height - 20, n_pts)], -1).astype(np.float32)
+    dep = np.asarray(dep0)
+    d = dep[np.round(uv[:, 1]).astype(int), np.round(uv[:, 0]).astype(int)]
+    X = np.asarray(jcam.backproject(CAM, jnp.asarray(uv), jnp.maximum(jnp.asarray(d), 1e-3)))
+    s = 0.5**level
+    ref = torch.from_numpy(np.array(jpyr.build_pyramid(img0, 4)[level]))
+    cur = np.array(jpyr.build_pyramid(img1, 4)[level])
+    patch, J, ok = tia._precompute_level(ref, torch.from_numpy(uv * s), torch.from_numpy(X),
+                                         torch.from_numpy(d > 0), CAM.fx * s, CAM.fy * s)
+    T_rel = np.asarray(seq.poses[2] @ jlie.se3_inv(seq.poses[0]))
+    xi = jnp.asarray([0.004, -0.003, 0.002, 0.002, -0.003, 0.001], jnp.float32)
+    T_init = np.asarray(jlie.se3_exp(xi) @ T_rel)
+    return cur, X, patch, J, ok, T_init, (CAM.fx * s, CAM.fy * s, CAM.cx * s, CAM.cy * s)
+
+
+@pytest.mark.parametrize("n_pts", [1024, 1000], ids=["N1024", "ragged_N1000"])
+def test_align_level_matches_jax_level_loop(rendered, n_pts):
+    """K1's function (plain on the CPU) against the JAX level loop
+    (_align_level, fused=False) on the same precomputed level; N = 1000
+    leaves the card's 8-CTA split ragged."""
+    cur, X, patch, J, ok, T_init, intr = _level_inputs(rendered, n_pts)
+    Hinv = tia.damped_hessian_inverse(J, ok)
+    T, chi2, n = tak.align_level(torch.from_numpy(cur), torch.from_numpy(X), patch, J, ok, Hinv,
+                                 torch.from_numpy(T_init), *intr, 30)
+    Tj, chi2j, nj = jia._align_level(jnp.asarray(cur), jnp.asarray(T_init), jnp.asarray(X),
+                                     jnp.asarray(patch.numpy()), jnp.asarray(J.numpy()),
+                                     jnp.asarray(ok.numpy()), *intr, 30, fused=False)
+    # the 6x6 solve (cho_solve vs the cached damped inverse) and the sums
+    # round differently in the last float32 bits
+    np.testing.assert_allclose(T.numpy(), np.asarray(Tj), atol=1e-4)
+    np.testing.assert_allclose(float(chi2), float(chi2j), rtol=1e-4)
+    assert int(n) == int(nj)
+
+
+def test_kernel_output_views_contract(rendered):
+    """The views the wrapper makes of the kernel's output words have the
+    plain version's types and shapes: T [4,4] f32 with the bottom row
+    [0, 0, 0, 1], chi2 0-d f32, n_px 0-d int32; the GN iteration count is
+    the fourth word after T."""
+    cur, X, patch, J, ok, T_init, intr = _level_inputs(rendered, 64)
+    args = (torch.from_numpy(cur), torch.from_numpy(X), patch, J, ok,
+            tia.damped_hessian_inverse(J, ok), torch.from_numpy(T_init), *intr, 30)
+    Tp, chi2p, np_, it = tak.align_level_steps(*args)
+    assert torch.equal(Tp[3], torch.tensor([0.0, 0.0, 0.0, 1.0]))
+    # the words the kernel writes for these results
+    out = torch.zeros(tak.OUT_SHAPE, dtype=torch.float32)
+    out[:4] = Tp
+    out[4, 0] = chi2p
+    out.view(torch.int32)[4, 1:3] = torch.tensor([int(np_), it], dtype=torch.int32)
+    views = tak._views(out)
+    for v, p in zip(views, (Tp, chi2p, np_)):
+        assert (v.dtype, v.shape) == (p.dtype, p.shape)
+        assert torch.equal(v, p)
+        assert v.untyped_storage().data_ptr() == out.untyped_storage().data_ptr()  # no copy
+    assert tak._iterations(out).dtype == torch.int32 and int(tak._iterations(out)) == it
+
+
+def test_kernel_bound_matches_wrapper():
+    """csrc/align_level.cu bounds N where kernels/align_kernel.py does, at
+    the most points whose invariants (J 24 + patch 4 + mask 1 bytes per
+    tap, X 12 bytes per point) fit one of the 8 CTAs' shared memory."""
+    src = (_build.CSRC / "align_level.cu").read_text()
+    define = {k: int(re.search(rf"#define {k} (\d+)", src).group(1))
+              for k in ("AL_N_MAX", "AL_DYN_MAX", "AL_CLUSTER", "AL_PATCH")}
+    assert define["AL_N_MAX"] == tak.N_MAX and define["AL_PATCH"] == tak.PATCH
+
+    def inv_bytes(n):
+        nc = -(-n // define["AL_CLUSTER"])
+        return nc * (define["AL_PATCH"] * 29 + 12)
+
+    assert inv_bytes(tak.N_MAX) <= define["AL_DYN_MAX"] < inv_bytes(tak.N_MAX + 1)

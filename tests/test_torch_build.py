@@ -2,6 +2,7 @@
 thresholds reach the CUDA sources from one definition, and a library's
 cache key covers the flags that carry them."""
 
+import ctypes
 import re
 
 import pytest
@@ -41,3 +42,29 @@ def test_cache_key_covers_flags(monkeypatch):
     monkeypatch.setattr(_build, "NVCC_FLAGS", flags)
     after = {n: _build.lib_path(n) for n in _build.SOURCES}
     assert all(before[n] != after[n] for n in _build.SOURCES)
+
+
+def test_bind_sets_argtypes_once(monkeypatch):
+    """bind() caches the bound function per (library, symbol): a second
+    bind returns the same object without loading or setting argtypes again."""
+    class Fn:
+        sets = 0
+
+        def __setattr__(self, name, value):
+            if name == "argtypes":
+                Fn.sets += 1
+            object.__setattr__(self, name, value)
+
+    class Lib:
+        sd_f, sd_g = Fn(), Fn()
+
+    loads = []
+    monkeypatch.setattr(_build, "_FNS", {})
+    monkeypatch.setattr(_build, "load", lambda name: loads.append(name) or Lib)
+    a = _build.bind("k", "sd_f", [ctypes.c_void_p])
+    b = _build.bind("k", "sd_f", [ctypes.c_void_p])
+    assert a is b is Lib.sd_f
+    assert (loads, Fn.sets) == (["k"], 1)
+    assert a.restype is ctypes.c_int
+    assert _build.bind("k", "sd_g", [ctypes.c_int]) is Lib.sd_g  # another symbol: bound anew
+    assert (loads, Fn.sets) == (["k", "k"], 2)

@@ -1,9 +1,12 @@
 """K6 (dense SPD Cholesky factor + solve): the port's chol_solve_dense on
 the CPU (its plain version) against sdslam_tpu's Pallas kernel in
 interpret mode, as tests/test_pallas_kernels.py runs it, and against
-jax.scipy's cho_solve beyond the Pallas kernel's interpret-mode sizes; and
-the gate in solvers/ba.py that sends 6K <= N_MAX to the kernel and larger
-systems to the library."""
+jax.scipy's cho_solve beyond the Pallas kernel's interpret-mode sizes; on
+local BA's reduced camera systems with the fixed-camera prior; the gate in
+solvers/ba.py that sends 6K <= N_MAX to the kernel and larger systems to
+the library; and the kernel source's bound against the wrapper's."""
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -12,6 +15,7 @@ import pytest
 import torch
 
 from sdslam_tpu.ops.pallas import chol_kernel as jchol
+from sdslam_tpu_torch.kernels import _build
 from sdslam_tpu_torch.kernels import chol_kernel as tchol
 from sdslam_tpu_torch.solvers import ba as tba
 
@@ -67,3 +71,44 @@ def test_ba_solve_gate(K, monkeypatch):
     S = S0 + torch.diag(prior.repeat_interleave(6))
     ref = tchol.chol_solve_dense_plain(S, bs.reshape(-1)).reshape(K, 6) * cam_active[:, None]
     torch.testing.assert_close(dc, ref, rtol=0, atol=0)
+
+
+def _ba_system(K, n_fixed=2, lm_lambda=1e-4):
+    """Local BA's reduced camera system [6K, 6K] as solvers/ba.py builds it
+    before the solve: a Schur-like SPD S0 plus FIXED_PRIOR on the diagonal
+    of the first n_fixed cameras and lm_lambda x (the camera block's trace
+    / 6) on the others."""
+    n = 6 * K
+    S0, b = _spd(n, 1000 + K)
+    tr = np.diagonal(S0).reshape(K, 6).sum(1)
+    prior = np.where(np.arange(K) >= n_fixed, lm_lambda * np.maximum(tr / 6.0, 1e-6),
+                     tba.FIXED_PRIOR)
+    return (S0 + np.diag(np.repeat(prior, 6))).astype(np.float32), b
+
+
+@pytest.mark.parametrize("K", [5, 14, 24, 38])
+def test_ba_system_matches_pallas_and_cho_solve(K):
+    """N = 30, 84, 144, 228: ragged panels for the card's 16-column blocks,
+    local BA's [144, 144], and the largest 6K under N_MAX. Both fixed
+    cameras sit under the 1e12 prior."""
+    S, b = _ba_system(K)
+    x = tchol.chol_solve_dense(torch.from_numpy(S), torch.from_numpy(b)).numpy()
+    pallas = np.asarray(jchol.chol_solve_dense(jnp.asarray(S), jnp.asarray(b), interpret=True))
+    c = jax.scipy.linalg.cho_factor(jnp.asarray(S), lower=True)
+    lib = np.asarray(jax.scipy.linalg.cho_solve(c, jnp.asarray(b)))
+    np.testing.assert_allclose(x, pallas, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(x, lib, rtol=RTOL, atol=ATOL)
+    resid = np.linalg.norm(S.astype(np.float64) @ x - b) / np.linalg.norm(b)
+    assert resid <= 1e-4
+
+
+def test_kernel_bound_matches_wrapper():
+    """csrc/chol_solve.cu bounds N where kernels/chol_kernel.py does, and a
+    launch at that N fits one block's shared memory (S at the kernel's
+    row stride, the least LD >= N with LD = 4 mod 8, plus the vector)."""
+    src = (_build.CSRC / "chol_solve.cu").read_text()
+    assert int(re.search(r"#define CS_N_MAX (\d+)", src).group(1)) == tchol.N_MAX
+    n = tchol.N_MAX
+    ld = ((n + 3) // 8) * 8 + 4
+    assert ld >= n and ld % 8 == 4
+    assert (n * ld + n) * 4 <= 232448
