@@ -9,9 +9,11 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
   2. build    nvcc for every kernel source, all in parallel; then each
               compiled function's registers, shared memory and spills
   3. kernels  each CUDA kernel against its plain PyTorch version on the
-              card at main-path shapes, with median times (CUDA events),
-              the least time the card could take (bound) and, where one
-              PyTorch call computes the same function, that call's time
+              card at main-path shapes, with median times (CUDA events
+              around one wrapper call), device times (torch.profiler, the
+              kernel's own events), the least time the card could take
+              (bound) and, where one PyTorch call computes the same
+              function, that call's time
   4. main     the RGB-D tracking + keyframe-mapping path at full size
               (640x480, 1024 keypoints, 256 KF slots, 16384 points) on a
               60-frame synthetic orbit rendered on the card; checks ATE,
@@ -80,6 +82,49 @@ def median_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_profile(fn, names, n: int = 10):
+    """Device time of fn() per call from torch.profiler over `n` calls:
+    `device_ms` sums the kernels whose name contains one of `names` (the
+    kernel's own events) and `kernels_per_call` counts them;
+    `device_all_ms` and `device_ops_per_call` cover every device event of
+    the calls (kernels, copies, fills). The tracer misses launches right
+    after it starts, so each trace runs `n` warm-up calls, idles the card
+    for 20 ms and runs the `n` measured calls; only the device events after
+    that gap count. A trace whose counts are not whole multiples of `n` is
+    taken again; the function raises if 5 traces in a row are incomplete."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(5):
+        time.sleep(0.1 * attempt)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events() if e.device_type != DeviceType.CPU),
+                     key=lambda e: e.time_range.start)
+        # the measured calls: the events after the widest gap, when it is the idle one
+        gap, cut = max(((b.time_range.start - a.time_range.end, k + 1)
+                        for k, (a, b) in enumerate(zip(evs, evs[1:]))), default=(0, 0))
+        evs = evs[cut:] if gap > 10e3 else evs
+        own = [e for e in evs if any(s in e.name for s in names)]
+        if own and len(own) % n == 0 and len(evs) % n == 0:
+            break
+    else:
+        raise AssertionError(f"5 incomplete traces of {names}: {len(own)} own events, "
+                             f"{len(evs)} in all, for {n} calls")
+    return {"device_ms": sum(e.time_range.elapsed_us() for e in own) / n / 1e3,
+            "kernels_per_call": len(own) / n,
+            "device_all_ms": sum(e.time_range.elapsed_us() for e in evs) / n / 1e3,
+            "device_ops_per_call": len(evs) / n}
 
 
 # --------------------------------------------------------------------------
@@ -216,10 +261,14 @@ def _ba_inputs(dev, K: int, Mo: int = 10, P: int = 2048):
     return (packed, lam, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, True, K)
 
 
-def _gn_inputs(dev, level: int, B: int = 256, n_pts: int = 1024, n_refs: int = 8):
-    """K5 at the relocalization shapes: B lanes (keyframe slots), each with
-    its own reference frame of the orbit and its own keypoints, against one
-    current image, at an iterate perturbed from the true relative pose."""
+def _batched_inputs(dev, level: int, B: int = 256, n_pts: int = 1024, n_refs: int = 8,
+                    invalid_lanes=()):
+    """One batched alignment level at the relocalization shapes: B lanes
+    (keyframe slots), each with its own reference frame of the orbit and
+    its own keypoints, against one current image, at an iterate perturbed
+    from the true relative pose. The lanes in `invalid_lanes` have no valid
+    tap (empty keyframe slots). Returns (img, X_ref, patch, J, ok, T [B,4,4],
+    (fx, fy, cx, cy))."""
     from sdslam_tpu_torch.geometry import camera as cam_mod, lie
     from sdslam_tpu_torch.io import synthetic
     from sdslam_tpu_torch.ops import pyramid, sample
@@ -243,10 +292,60 @@ def _gn_inputs(dev, level: int, B: int = 256, n_pts: int = 1024, n_refs: int = 8
     T_true = seq.poses[7][None] @ lie.se3_inv(seq.poses[2 * lane_ref])
     xi = torch.randn(B, 6, generator=g) * torch.tensor([0.004, 0.004, 0.004, 0.003, 0.003, 0.003])
     T = (lie.se3_exp(xi) @ T_true).to(dev)
-    Xc = lie.se3_apply(T[:, None], X)
+    if len(invalid_lanes):
+        ok = ok.clone()
+        ok[torch.as_tensor(list(invalid_lanes), device=dev)] = False
     img = pyramid.build_pyramid(cur, 5)[level]
-    return (img.contiguous(), Xc.contiguous(), patch.contiguous(), J.contiguous(),
-            ok.contiguous(), cam.fx * s, cam.fy * s, cam.cx * s, cam.cy * s)
+    return (img.contiguous(), X.contiguous(), patch.contiguous(), J.contiguous(),
+            ok.contiguous(), T.contiguous(), (cam.fx * s, cam.fy * s, cam.cx * s, cam.cy * s))
+
+
+def _gn_inputs(dev, level: int):
+    """K5's one-evaluation form at the relocalization shapes: the points of
+    _batched_inputs already moved into the current camera by each lane's
+    iterate."""
+    from sdslam_tpu_torch.geometry import lie
+
+    img, X, patch, J, ok, T, intr = _batched_inputs(dev, level)
+    return (img, lie.se3_apply(T[:, None], X).contiguous(), patch, J, ok, *intr)
+
+
+# A batched lane's stop test is a float tie when the plain loop's own values
+# stand within the rounding of the kernel's and the plain einsum's sums of
+# each other: chi2 within TIE_CHI2_REL of the best before it (a few times the
+# largest kernel-vs-plain chi2 difference seen at a parting, 7.1e-7), or
+# |delta|_inf within TIE_DELTA of the 1e-7 convergence threshold. At most
+# TIE_LANES_MAX of a case's lanes may part at a tie.
+TIE_CHI2_REL = 2e-6
+TIE_DELTA = 1e-9
+TIE_LANES_MAX = 0.02
+
+
+def _lane_decision(args, b: int, k_iter: int, p_iter: int):
+    """Where the kernel's and the plain loop's GN iterations part on lane b:
+    the stop test of iteration min(k_iter, p_iter) - 1, recomputed by the
+    plain loop's arithmetic on that lane alone, and whether it is a float
+    tie (TIE_CHI2_REL, TIE_DELTA)."""
+    from sdslam_tpu_torch.geometry import lie
+    from sdslam_tpu_torch.kernels import accumulate_gn_kernel as gk
+
+    img, X, patch, J, okpx, L, T0, fx, fy, cx, cy, _ = args
+    sl = slice(b, b + 1)
+    T, best = T0[sl], math.inf
+    j = min(k_iter, p_iter) - 1
+    for it in range(j + 1):
+        bb, chi_sum, n = gk.accumulate_gn_plain(img, lie.se3_apply(T[:, None], X[sl]), patch[sl],
+                                                J[sl], okpx[sl], fx, fy, cx, cy)
+        chi2 = float(chi_sum[0] / torch.clamp(n[0], min=1))
+        delta = torch.cholesky_solve(bb[..., None], L[sl])[..., 0]
+        if it < j:
+            best = min(best, chi2)
+            T = T @ lie.se3_exp(-delta)
+    margin = chi2 / best - 1.0 if 0.0 < best < math.inf else math.inf
+    dmax = float(delta.abs().max())
+    tie = (j > 0 and abs(margin) <= TIE_CHI2_REL) or abs(dmax - 1e-7) <= TIE_DELTA
+    return {"lane": b, "gn_iterations": k_iter, "gn_iterations_plain": p_iter,
+            "chi2_over_best_minus_1": margin, "delta_max": dmax, "tie": tie}
 
 
 PTXAS_FN = re.compile(r"(?:Compiling entry function|Function properties for) '?(\w+)'?")
@@ -387,6 +486,7 @@ def phase_kernels(dev):
             raise AssertionError(f"hamming {na}x{nb}: cdist yardstick != plain")
         cases.append({"shape": [na, nb], "max_abs_err": 0.0,
                       "ms": median_ms(lambda: hk.hamming_matrix(da, db)),
+                      **device_profile(lambda: hk.hamming_matrix(da, db), ("hamming_kernel",)),
                       "plain_ms": median_ms(lambda: hk.hamming_matrix_plain(da, db)),
                       "bound_ms": bms, "bound_by": by,
                       "library_ms": median_ms(lambda: torch.cdist(ba_, bb_, p=0))})
@@ -399,9 +499,12 @@ def phase_kernels(dev):
     # 4, 3, 2 of the main path at N = 1024; level 2 at a ragged N = 1000
     # (the cluster's last CTA masked); level 1 (320x240), larger than the
     # shared-memory staging budget (the image read through the read-only
-    # cache); level 2 at N = 1024, the main path's finest call, last
+    # cache); level 2 at N = 4096 and 8192, past the points whose
+    # invariants fit shared memory (the rest read from global memory);
+    # level 2 at N = 1024, the main path's finest call, last
     cases = []
-    for level, n_pts in ((4, 1024), (3, 1024), (1, 1024), (2, 1000), (2, 1024)):
+    for level, n_pts in ((4, 1024), (3, 1024), (1, 1024), (2, 1000), (2, 4096), (2, 8192),
+                         (2, 1024)):
         args = _align_inputs(dev, level, n_pts)
         out = ak._launch(*args)
         T, chi2, n = ak._views(out)
@@ -430,11 +533,15 @@ def phase_kernels(dev):
                       "n_px": int(n), "n_px_plain": int(np_), "gn_iterations": k_iter,
                       "gn_iterations_plain": n_iter,
                       "image_staged": ak._image_staged(N, H, W),
+                      "staged_points_per_cta": ak.staged_points(N),
                       "ms": median_ms(lambda: ak.align_level(*args)),
+                      **device_profile(lambda: ak.align_level(*args), ("align_level_kernel",)),
                       "plain_ms": median_ms(lambda: ak.align_level_plain(*args), reps=20),
                       "bound_ms": bms, "bound_by": by, "library_ms": None})
     if {c["image_staged"] for c in cases} != {True, False}:
         raise AssertionError("align_level cases miss one of the two image paths")
+    if not any(c["N"] > ak.CLUSTER * c["staged_points_per_cta"] for c in cases):
+        raise AssertionError("align_level cases never read invariants from global memory")
     emit("kernel", name="align_level",
          tol="T 1e-4 abs (bottom row exact), chi2 1e-4 rel, n_px and GN iterations equal",
          cases=cases)
@@ -443,11 +550,14 @@ def phase_kernels(dev):
     # K2: T within 1e-4, inlier masks equal, the kernel's own inlier count
     # equal to the plain count and to its mask, chi2 within 1e-4 relative.
     # Priors 1.2 rad and pi - 0.1 rad from the truth run the full-range
-    # SE(3) log of csrc/sd_common.cuh past the TPU series' 0.5 rad; the
-    # main path's case (a prior close to the truth) comes last.
+    # SE(3) log of csrc/sd_common.cuh past the TPU series' 0.5 rad; N = 4096
+    # runs the edges past the ones each thread holds in registers; the main
+    # path's case (N = 1024, a prior close to the truth) comes last. One
+    # launch per call and no other device op (the profiler's count)
     cases = []
-    for prior_rot in (1.2, math.pi - 0.1, 0.005):
-        args = _pose_inputs(dev, prior_rot)
+    for prior_rot, n_edges in ((1.2, 1024), (math.pi - 0.1, 1024), (0.005, 4096),
+                               (0.005, 1024)):
+        args = _pose_inputs(dev, prior_rot, n_edges)
         T, m, n, c = pk.pose_optimize(*args)
         Tp, mp, n_p, cp = pk.pose_optimize_plain(*args)
         torch.cuda.synchronize()
@@ -456,15 +566,21 @@ def phase_kernels(dev):
         N, rounds, iters = args[0].shape[0], args[9], args[10]
         bms, by = bound(nbytes(*args[:4], T, m, n, c),
                         N * (rounds * iters * POSE_EDGE_FLOP + (rounds + 1) * POSE_RESID_FLOP))
+        types = [(t.dtype, tuple(t.shape)) for t in (T, m, n, c)]
         if not (err <= 1e-4 and torch.equal(m, mp) and len(set(counts)) == 1
-                and chi2_rel <= 1e-4):
+                and chi2_rel <= 1e-4 and T[3].tolist() == [0.0, 0.0, 0.0, 1.0]
+                and types == [(t.dtype, tuple(t.shape)) for t in (Tp, mp, n_p, cp)]):
             raise AssertionError(
-                f"pose_gn prior {prior_rot} rad: |T - T_plain| = {err}, masks equal "
-                f"{torch.equal(m, mp)}, n / n_plain / mask sum {counts}, chi2 rel {chi2_rel}")
-        cases.append({"n": args[0].shape[0], "schedule": [2, 5], "prior_rad": prior_rot,
+                f"pose_gn prior {prior_rot} rad N={N}: |T - T_plain| = {err}, masks equal "
+                f"{torch.equal(m, mp)}, n / n_plain / mask sum {counts}, chi2 rel {chi2_rel}, "
+                f"bottom row {T[3].tolist()}, outputs {types}")
+        dp = device_profile(lambda: pk.pose_optimize(*args), ("pose_gn_kernel",))
+        if dp["kernels_per_call"] != 1.0 or dp["device_ops_per_call"] != 1.0:
+            raise AssertionError(f"pose_gn N={N}: {dp} (one launch per call, nothing else)")
+        cases.append({"n": N, "schedule": [rounds, iters], "prior_rad": prior_rot,
                       "max_abs_err": err, "chi2_rel_err": chi2_rel,
                       "n_inliers": int(n), "n_inliers_plain": int(n_p),
-                      "ms": median_ms(lambda: pk.pose_optimize(*args)),
+                      "ms": median_ms(lambda: pk.pose_optimize(*args)), **dp,
                       "plain_ms": median_ms(lambda: pk.pose_optimize_plain(*args)),
                       "bound_ms": bms, "bound_by": by, "library_ms": None})
     emit("kernel", name="pose_gn",
@@ -492,13 +608,16 @@ def phase_kernels(dev):
         cases.append({"K": K, "emit_zt": emit_zt, "shape": list(args[0].shape),
                       "max_abs_err": abs_err, "worst_err_over_tol": worst, "worst": where,
                       "ms": median_ms(lambda: bk.ba_edge_schur(*args, emit_zt=emit_zt)),
+                      **device_profile(lambda: bk.ba_edge_schur(*args, emit_zt=emit_zt),
+                                       ("ba_schur_kernel",)),
                       "plain_ms": median_ms(lambda: bk.ba_edge_schur_plain(*args, emit_zt=emit_zt)),
                       "bound_ms": bms, "bound_by": by, "library_ms": None})
     emit("kernel", name="ba_schur", tol="per channel vs float64: max(1e-4, 8x plain f32 err)",
          cases=cases)
     rows["ba_schur"] = cases
 
-    # K5: n_px equal; chi2_sum within 1e-4 relative; b channel by channel
+    # K5, its one-evaluation form (the level kernel at zero iterations, T =
+    # I): n_px equal; chi2_sum within 1e-4 relative; b channel by channel
     # (the 6 components over the 256 lanes) within 1e-4 of |ref| plus the
     # channel's median |ref| (see _channel_rel): the kernel and the plain
     # einsum sum ~16k taps per lane in another order
@@ -527,11 +646,81 @@ def phase_kernels(dev):
                       "b_rel_err": b_rel, "chi2_rel_err": chi2_rel,
                       "n_px_total": int(n.sum()),
                       "ms": median_ms(lambda: gk.accumulate_gn(*args)),
+                      **device_profile(lambda: gk.accumulate_gn(*args), ("align_level_kernel",)),
                       "plain_ms": median_ms(lambda: gk.accumulate_gn_plain(*args)),
                       "bound_ms": bms, "bound_by": by, "library_ms": None})
     emit("kernel", name="accumulate_gn",
          tol="n_px equal, chi2_sum 1e-4 rel, b per channel 1e-4", cases=cases)
     rows["accumulate_gn"] = cases
+
+    # K5's batched level (what relocalization and loop detection run): every
+    # lane held to the plain loop: T within 1e-4, chi2 within 1e-4
+    # relative, n_px and GN iterations equal. 256 lanes of 1024 points with
+    # some all-invalid lanes (empty keyframe slots), 15 iterations, at
+    # levels 3 and 4, one ragged case (N = 1000); level 4 at N = 1024, the
+    # loop detector's call, last. One launch per level and no other device
+    # op (the profiler's count); the lanes the card runs at once
+    # (cudaOccupancyMaxActiveClusters)
+    from sdslam_tpu_torch.solvers import image_align as ia
+
+    cases = []
+    invalid = (5, 77, 128, 255)
+    for level, n_pts in ((3, 1024), (3, 1000), (4, 1024)):
+        img, X, patch, J, okpx, T0, intr = _batched_inputs(dev, level, n_pts=n_pts,
+                                                           invalid_lanes=invalid)
+        L = ia._damped_cholesky(J, okpx).contiguous()
+        args = (img, X, patch, J, okpx, L, T0, *intr, 15)
+        out = gk._launch_level(*args)
+        T, chi2, n, k_iter = gk._level_views(out, T0.shape[0])
+        Tp, chi2p, np_, p_iter = gk.align_level_batched_steps(*args)
+        torch.cuda.synchronize()
+        B, N = X.shape[:2]
+        t_err = (T.double() - Tp.double()).abs().amax((1, 2))
+        c_rel = (chi2.double() - chi2p.double()).abs() / chi2p.double().abs().clamp(min=1e-30)
+        bad = ((t_err > 1e-4) | (c_rel > 1e-4) | (n != np_)
+               | (T[:, 3] != torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev)).any(1))
+        # a lane's GN iterations must equal the plain loop's unless the
+        # stop test where the two part is a float tie (the kernel's sums
+        # and the plain einsum's round differently; see _lane_decision),
+        # and no more than TIE_LANES_MAX of the lanes may part
+        ties = [_lane_decision(args, b, int(k_iter[b]), int(p_iter[b]))
+                for b in (k_iter != p_iter).nonzero()[:, 0].tolist()]
+        bad[[t["lane"] for t in ties if not t["tie"]]] = True
+        if len(ties) > TIE_LANES_MAX * B:
+            raise AssertionError(f"align_batched level {level} N={N}: {len(ties)} of {B} lanes "
+                                 f"part from the plain loop's GN iterations: {ties}")
+        if bool(bad.any()) or not bool((np_[list(invalid)] == 1).all()):
+            b0 = int(bad.nonzero()[0]) if bool(bad.any()) else int(invalid[0])
+            raise AssertionError(
+                f"align_batched level {level} N={N} lane {b0} ({int(bad.sum())} lanes off): "
+                f"|T - T_plain| {float(t_err[b0])}, chi2 rel {float(c_rel[b0])}, n_px "
+                f"{int(n[b0])} vs {int(np_[b0])}, GN iterations {int(k_iter[b0])} vs "
+                f"{int(p_iter[b0])}; {ties}")
+        # bytes: the image, X, the masks, L, T and J and the patch of the
+        # taps valid at the final iterate, the outputs; operations: each
+        # lane's evaluations (its GN iterations + the final one)
+        bms, by = bound(nbytes(img, X, okpx, L, T0, out) + int(np_.sum()) * TAP_BYTES,
+                        float(((p_iter + 1).double() * (N * PROJ_FLOP + np_.double() * TAP_FLOP))
+                              .sum()))
+        dp = device_profile(lambda: gk.align_level_batched(*args), ("align_level_kernel",))
+        if dp["kernels_per_call"] != 1.0 or dp["device_ops_per_call"] != 1.0:
+            raise AssertionError(f"align_batched level {level}: {dp} (one launch per level)")
+        H, W = img.shape
+        cases.append({"level": level, "hw": [H, W], "B": B, "N": N, "iters": 15,
+                      "invalid_lanes": list(invalid),
+                      "max_abs_err": float(t_err.max()), "chi2_rel_err": float(c_rel.max()),
+                      "gn_iterations_min_mean_max": [int(p_iter.min()), float(p_iter.float().mean()),
+                                                     int(p_iter.max())],
+                      "lanes_gn_iterations_equal": B - len(ties), "iteration_ties": ties,
+                      "image_staged": ak._image_staged(N, H, W),
+                      "max_active_clusters": gk.max_active_clusters(N, H, W),
+                      "ms": median_ms(lambda: gk.align_level_batched(*args)), **dp,
+                      "plain_ms": median_ms(lambda: gk.align_level_batched_plain(*args), reps=5),
+                      "bound_ms": bms, "bound_by": by, "library_ms": None})
+    emit("kernel", name="align_batched",
+         tol="per lane: T 1e-4 abs (bottom row exact), chi2 1e-4 rel, n_px and GN iterations equal",
+         cases=cases)
+    rows["align_batched"] = cases
 
     # K6: x within rtol 2e-4 / atol 2e-5 of the plain version (the library
     # factor and solve, which is also the library yardstick) and a relative
@@ -558,6 +747,7 @@ def phase_kernels(dev):
         plain_ms = median_ms(lambda: ck.chol_solve_dense_plain(S, b))
         cases.append({"N": N, "system": system, "max_abs_err": err, "residual": resid,
                       "ms": median_ms(lambda: ck.chol_solve_dense(S, b)),
+                      **device_profile(lambda: ck.chol_solve_dense(S, b), ("chol_solve_kernel",)),
                       "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                       "library_ms": plain_ms})
     emit("kernel", name="chol_solve", tol="x rtol 2e-4 atol 2e-5, |Sx-b|/|b| <= 1e-4",
@@ -599,6 +789,8 @@ def phase_kernels(dev):
                       "rel_err": float(k_err[ch]), "plain_rel_err": float(p_err[ch]),
                       "max_rel_err": float(k_err.max()), "max_plain_rel_err": float(p_err.max()),
                       "ms": median_ms(lambda: ek.ba_edge_terms(packed, *cam_args)),
+                      **device_profile(lambda: ek.ba_edge_terms(packed, *cam_args),
+                                       ("ba_edge_kernel",)),
                       "plain_ms": median_ms(lambda: ek.ba_edge_terms_plain(packed, *cam_args)),
                       "bound_ms": bms, "bound_by": by, "library_ms": None})
     emit("kernel", name="ba_edge",
@@ -619,43 +811,51 @@ KERNEL_META = {
                 "sdslam_tpu/ops/pallas/hamming_kernel.py:56"),
     "accumulate_gn": ("sdslam_tpu_torch/csrc/accumulate_gn.cu",
                       "sdslam_tpu/ops/pallas/align_kernel.py:405"),
+    # K5's batched level: the same TPU kernel's work on the path, the
+    # loop around it included
+    "align_batched": ("sdslam_tpu_torch/csrc/accumulate_gn.cu",
+                      "sdslam_tpu/ops/pallas/align_kernel.py:405"),
     "chol_solve": ("sdslam_tpu_torch/csrc/chol_solve.cu",
                    "sdslam_tpu/ops/pallas/chol_kernel.py:105"),
     "ba_edge": ("sdslam_tpu_torch/csrc/ba_edge.cu",
                 "sdslam_tpu/ops/pallas/ba_edge_kernel.py:162"),
 }
 
-# the kernels each path must launch (ba_edge is on no path: neither package
-# calls it while tracking; phase 3 is its entry point)
+# the kernels each path must launch (K5's one-evaluation form and ba_edge
+# are on no path: relocalization and loop detection run K5's batched level,
+# and neither package calls ba_edge while tracking; phase 3 is their entry
+# point)
 PATH_KERNELS = {
     "main": ("align_level", "pose_gn", "ba_schur", "hamming", "chol_solve"),
-    "reloc": ("accumulate_gn", "pose_gn", "hamming"),
-    "loop": ("accumulate_gn", "hamming", "ba_schur", "chol_solve"),
-    "mono": ("align_level", "pose_gn", "ba_schur", "hamming", "accumulate_gn", "chol_solve"),
+    "reloc": ("align_batched", "pose_gn", "hamming"),
+    "loop": ("align_batched", "hamming", "ba_schur", "chol_solve"),
+    "mono": ("align_level", "pose_gn", "ba_schur", "hamming", "align_batched", "chol_solve"),
     "fusion": ("align_level", "pose_gn", "ba_schur", "hamming", "chol_solve"),
 }
 
 
-def kernel_modules():
+def launch_counters():
+    """{kernel: (wrapper module, name of its launch counter)}."""
     from sdslam_tpu_torch.kernels import (
         accumulate_gn_kernel, align_kernel, ba_edge_kernel, ba_schur_kernel, chol_kernel,
         hamming_kernel, pose_kernel,
     )
-    return {"align_level": align_kernel, "pose_gn": pose_kernel,
-            "ba_schur": ba_schur_kernel, "hamming": hamming_kernel,
-            "accumulate_gn": accumulate_gn_kernel, "chol_solve": chol_kernel,
-            "ba_edge": ba_edge_kernel}
+    return {"align_level": (align_kernel, "LAUNCHES"), "pose_gn": (pose_kernel, "LAUNCHES"),
+            "ba_schur": (ba_schur_kernel, "LAUNCHES"), "hamming": (hamming_kernel, "LAUNCHES"),
+            "accumulate_gn": (accumulate_gn_kernel, "LAUNCHES"),
+            "align_batched": (accumulate_gn_kernel, "LEVEL_LAUNCHES"),
+            "chol_solve": (chol_kernel, "LAUNCHES"), "ba_edge": (ba_edge_kernel, "LAUNCHES")}
 
 
 def reset_launches():
-    for m in kernel_modules().values():
-        m.LAUNCHES = 0
+    for m, attr in launch_counters().values():
+        setattr(m, attr, 0)
 
 
 def read_launches(path: str):
     """Launch counts since reset_launches(); fails if a kernel of `path`
     never launched."""
-    launches = {k: m.LAUNCHES for k, m in kernel_modules().items()}
+    launches = {k: getattr(m, attr) for k, (m, attr) in launch_counters().items()}
     missing = [k for k in PATH_KERNELS[path] if launches[k] <= 0]
     if missing:
         raise AssertionError(f"{path} path never launched: {missing}")
@@ -1130,7 +1330,8 @@ def main():
     emit("seconds", **seconds)
 
     # per kernel: its last case's numbers (the shape of its main-path call),
-    # and launches x (ms - bound_ms), the order of the redesign queue
+    # and launches x (ms - bound_ms) and launches x (device_ms - bound_ms),
+    # the order of the redesign queue
     kernels = []
     for name, (src, replaces) in KERNEL_META.items():
         cases = table[name]
@@ -1140,13 +1341,15 @@ def main():
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches,
             "excess_ms": launches * (last["ms"] - last["bound_ms"]),
+            "device_excess_ms": launches * (last["device_ms"] - last["bound_ms"]),
             "launches_by_path": {path: p[name] for path, p in by_path.items()},
             "max_abs_err": max(c["max_abs_err"] for c in cases),
-            **{k: last[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-            "cases": [{k: c[k] for k in c if k in ("shape", "level", "K", "N", "E", "prior_rad",
-                                                   "system",
-                                                   "ms", "plain_ms", "bound_ms", "bound_by",
-                                                   "library_ms")}
+            **{k: last[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+            "cases": [{k: c[k] for k in c if k in ("shape", "level", "B", "K", "N", "E", "n",
+                                                   "prior_rad", "system", "ms", "device_ms",
+                                                   "kernels_per_call", "plain_ms", "bound_ms",
+                                                   "bound_by", "library_ms")}
                       for c in cases],
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,9 +4,12 @@ Port of sdslam_tpu/ops/pallas/align_kernel.py::align_level. The plain
 version is the per-iteration XLA loop of
 sdslam_tpu/solvers/image_align.py:_align_level (fused=False), with the
 damped Hessian inverse Hinv precomputed by the caller as the fused path
-does. The kernel runs a level on a cluster of 8 CTAs and writes its
-outputs finished (`_views` of the buffer `_launch` returns; `_iterations`
-reads the number of GN iterations it ran).
+does. The kernel (the one-lane case of the level kernel that K5's batched
+form shares, csrc/sd_align.cuh) runs a level on a cluster of 8 CTAs and
+writes its outputs finished (`_views` of the buffer `_launch` returns;
+`_iterations` reads the number of GN iterations it ran). It takes any N:
+each CTA stages up to STAGE_MAX points of its share in shared memory and
+reads the rest from global memory.
 """
 
 from __future__ import annotations
@@ -26,9 +29,18 @@ PATCH = (2 * PATCH_HALF) ** 2
 # the kernel's output, 20 words: T [4,4], chi2, then n_px and the GN
 # iterations as int32, one word unused
 OUT_SHAPE = (5, 4)
-# the most points a launch takes: each of the cluster's 8 CTAs keeps its
-# share's J, patch, mask and X in shared memory (AL_N_MAX in the source)
-N_MAX = 3872
+# a lane's CTAs (AL_CLUSTER in csrc/sd_align.cuh), each taking 1/CLUSTER of
+# the points
+CLUSTER = 8
+# the most points of a CTA's share whose J, patch, mask and X are staged in
+# shared memory (AL_STAGE_MAX); the rest of the share is read from global
+# memory
+STAGE_MAX = 484
+
+
+def staged_points(N: int) -> int:
+    """Points of each CTA's share that a launch stages in shared memory."""
+    return min(-(-N // CLUSTER), STAGE_MAX)
 
 
 def gn_terms(img, X_ref, ref_patch, J, okpx, T, fx, fy, cx, cy):
@@ -108,25 +120,31 @@ def _image_staged(N: int, H: int, W: int) -> bool:
                             [ctypes.c_int] * 3)(N, H, W))
 
 
-def _launch(img, X_ref, ref_patch, J, okpx, Hinv, T_init,
-            fx: float, fy: float, cx: float, cy: float, iters: int) -> torch.Tensor:
-    """One kernel launch on CUDA tensors; returns its output buffer."""
-    N = X_ref.shape[0]
+def check_level_inputs(what: str, img, X_ref, ref_patch, J, okpx, lead=()):
+    """What the level kernel takes (K1: lead (); K5: lead (B,)): a float32
+    image of at least 2x2, contiguous operands of the right shapes, J and
+    ref_patch 16-byte aligned (float4 reads), okpx 4-byte aligned."""
+    N = X_ref.shape[len(lead)]
     H, W = img.shape
     if H < 2 or W < 2:
         raise ValueError(f"level image {H}x{W} too small for bilinear sampling")
     _device.check_tensor("img", img, torch.float32, (H, W))
-    _device.check_tensor("X_ref", X_ref, torch.float32, (N, 3))
-    _device.check_tensor("ref_patch", ref_patch, torch.float32, (N, PATCH))
-    _device.check_tensor("J", J, torch.float32, (N, PATCH, 6))
-    _device.check_tensor("okpx", okpx, torch.bool, (N, PATCH))
+    _device.check_tensor("X_ref", X_ref, torch.float32, (*lead, N, 3))
+    _device.check_tensor("ref_patch", ref_patch, torch.float32, (*lead, N, PATCH))
+    _device.check_tensor("J", J, torch.float32, (*lead, N, PATCH, 6))
+    _device.check_tensor("okpx", okpx, torch.bool, (*lead, N, PATCH))
+    if J.data_ptr() % 16 or ref_patch.data_ptr() % 16 or okpx.data_ptr() % 4:
+        raise ValueError(f"{what}: the kernel reads J and ref_patch as float4s (16-byte "
+                         "aligned) and okpx by words (4-byte aligned)")
+    return N, H, W
+
+
+def _launch(img, X_ref, ref_patch, J, okpx, Hinv, T_init,
+            fx: float, fy: float, cx: float, cy: float, iters: int) -> torch.Tensor:
+    """One kernel launch on CUDA tensors; returns its output buffer."""
+    N, H, W = check_level_inputs("align_level", img, X_ref, ref_patch, J, okpx)
     _device.check_tensor("Hinv", Hinv, torch.float32, (6, 6))
     _device.check_tensor("T_init", T_init, torch.float32, (4, 4))
-    if N > N_MAX:
-        raise ValueError(f"align_level: N = {N} > N_MAX = {N_MAX}")
-    if J.data_ptr() % 16 or ref_patch.data_ptr() % 16 or okpx.data_ptr() % 4:
-        raise ValueError("align_level: the kernel reads J and ref_patch as float4s (16-byte "
-                         "aligned) and okpx by words (4-byte aligned)")
     out = torch.empty(OUT_SHAPE, dtype=torch.float32, device=img.device)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = _build.bind(

@@ -4,6 +4,8 @@ Port of sdslam_tpu/ops/pallas/pose_kernel.py::pose_optimize. The plain
 version is the XLA path of sdslam_tpu/solvers/pose_opt.py (fused=False),
 with the full-range SE(3) log in the prior residual. Neither returns a
 re-normalized pose: solvers/pose_opt.optimize_pose does that after either.
+The kernel writes its outputs finished into one buffer and the wrapper
+returns views of it (`_views`): one launch and one allocation per call.
 """
 
 from __future__ import annotations
@@ -19,6 +21,9 @@ from sdslam_tpu_torch.solvers.ba_const import CHI2_MONO, CHI2_STEREO, HUBER_MONO
 
 LAUNCHES = 0
 COLS = 16
+# the kernel's output: T [4,4] f32, chi2 f32 and n_inliers int32 (72
+# bytes), then the inlier mask [N] (bytes)
+OUT_HEAD = 72
 
 
 def pack_edges(X, uv_obs, ur_obs, inv_sigma2, valid, stereo):
@@ -107,26 +112,38 @@ def pose_optimize(edata, T_init, T_prior_inv, prior_info,
     if not _device.use_kernel(edata, T_init, T_prior_inv, prior_info):
         return pose_optimize_plain(edata, T_init, T_prior_inv, prior_info,
                                    fx, fy, cx, cy, bf, rounds, iters, has_prior)
+    return _views(_launch(edata, T_init, T_prior_inv, prior_info, fx, fy, cx, cy, bf,
+                          rounds, iters, has_prior), edata.shape[0])
+
+
+def _views(out: torch.Tensor, N: int):
+    """The kernel's output bytes as (T [4,4] f32, inliers [N] bool,
+    n_inliers 0-d int32, chi2 0-d f32): views, no copy. The kernel writes T
+    whole, bottom row [0, 0, 0, 1] included, then chi2 and n_inliers, then
+    the inlier mask."""
+    head = out[:OUT_HEAD]
+    return (head.view(torch.float32)[:16].view(4, 4), out[OUT_HEAD:OUT_HEAD + N].view(torch.bool),
+            head.view(torch.int32)[17], head.view(torch.float32)[16])
+
+
+def _launch(edata, T_init, T_prior_inv, prior_info, fx: float, fy: float, cx: float, cy: float,
+            bf: float, rounds: int, iters: int, has_prior: bool) -> torch.Tensor:
+    """One kernel launch on CUDA tensors; returns its output buffer."""
     N = edata.shape[0]
     _device.check_tensor("edata", edata, torch.float32, (N, COLS))
     _device.check_tensor("T_init", T_init, torch.float32, (4, 4))
     _device.check_tensor("T_prior_inv", T_prior_inv, torch.float32, (4, 4))
     _device.check_tensor("prior_info", prior_info, torch.float32, (2,))
-    prior = torch.cat([T_prior_inv[:3, :3].reshape(9), T_prior_inv[:3, 3], prior_info,
-                       torch.zeros(2, device=edata.device)]).contiguous()
-    outT = torch.empty(16, dtype=torch.float32, device=edata.device)
-    mask = torch.empty(N, dtype=torch.bool, device=edata.device)
+    out = torch.empty(OUT_HEAD + N, dtype=torch.uint8, device=edata.device)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = _build.bind(
         "pose_gn", "sd_pose_gn",
-        [vp, ci, vp, vp, ci, cf, cf, cf, cf, cf, ci, ci, vp, vp, vp],
+        [vp, ci, vp, vp, vp, ci, cf, cf, cf, cf, cf, ci, ci, vp, vp],
     )
-    rc = fn(edata.data_ptr(), N, T_init.data_ptr(), prior.data_ptr(), int(has_prior),
-            float(fx), float(fy), float(cx), float(cy), float(bf), int(rounds), int(iters),
-            outT.data_ptr(), mask.data_ptr(), _device.stream_ptr(edata))
+    rc = fn(edata.data_ptr(), N, T_init.data_ptr(), T_prior_inv.data_ptr(), prior_info.data_ptr(),
+            int(has_prior), float(fx), float(fy), float(cx), float(cy), float(bf), int(rounds),
+            int(iters), out.data_ptr(), _device.stream_ptr(edata))
     _build.check(rc, "sd_pose_gn")
     global LAUNCHES
     LAUNCHES += 1
-    T = torch.eye(4, device=edata.device)
-    T[:3] = outT[:12].view(3, 4)
-    return T, mask, outT[13].to(torch.int32), outT[12]
+    return out

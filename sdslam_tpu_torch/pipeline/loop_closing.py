@@ -2,8 +2,8 @@
 sdslam_tpu/pipeline/loop_closing.py).
 
   detect:  photometric alignment of the new keyframe against every
-           keyframe slot at the coarsest level (kernel K5, all slots in one
-           launch per GN iteration; no bag of words), candidates below an
+           keyframe slot at the coarsest level (kernel K5's batched level,
+           all slots in one launch; no bag of words), candidates below an
            absolute bound, covisibility-group consistency over consecutive
            keyframes (th = 3) before verification;
   verify:  brute-force descriptor matching (K4), Horn Sim3 RANSAC,

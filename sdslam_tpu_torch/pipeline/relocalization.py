@@ -2,10 +2,11 @@
 (port of sdslam_tpu/pipeline/relocalization.py).
 
 One batched alignment of the current frame against every keyframe slot
-(kernel K5 per GN iteration, all slots in one launch), candidates ranked by
-photometric error, then the best few verified by projection matching (K4)
-and pose GN (K2), with a brute-force descriptor + EPnP-RANSAC fallback for
-views the photometric basin cannot reach (strong in-plane rotation).
+(kernel K5's batched level: all slots, one launch per pyramid level),
+candidates ranked by photometric error, then the best few verified by
+projection matching (K4) and pose GN (K2), with a brute-force descriptor +
+EPnP-RANSAC fallback for views the photometric basin cannot reach (strong
+in-plane rotation).
 """
 
 from __future__ import annotations

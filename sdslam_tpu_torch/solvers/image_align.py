@@ -6,9 +6,10 @@ pyramid level. `align` (one reference, the tracker) runs a level's whole
 Gauss-Newton loop in kernel K1 (kernels/align_kernel.py: one launch per
 level on the card, the plain loop on the CPU). `align_batched` (B
 references against one current pyramid: relocalization and loop
-detection, the JAX package's jax.vmap of the non-fused aligner) computes
-each iteration's right-hand side for all lanes in kernel K5
-(kernels/accumulate_gn_kernel.py). Levels run coarse to fine;
+detection, the JAX package's jax.vmap of the non-fused aligner) runs each
+level for all lanes in kernel K5's batched form
+(kernels/accumulate_gn_kernel.py: one launch per level on the card, the
+plain loop on the CPU). Levels run coarse to fine;
 `start_level` says which pyramid level entry 0 of the tuples is
 (keyframes store levels >= 2).
 """
@@ -19,7 +20,6 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from sdslam_tpu_torch.geometry import lie
 from sdslam_tpu_torch.kernels import accumulate_gn_kernel as gk
 from sdslam_tpu_torch.kernels import align_kernel as ak
 from sdslam_tpu_torch.ops import interp
@@ -114,38 +114,13 @@ def align(
 
 
 def _align_level_batched(cur_img, T, X_ref, ref_patch, J, ok, fx, fy, cx, cy, iters: int):
-    """The non-fused GN loop of one level for B lanes at once: K5 per
-    iteration, a damped 6x6 solve per lane. A vmapped lax.while_loop runs
-    until every lane stops and freezes the lanes that did; here the fixed
-    `iters` run with a per-lane `active` mask (no host sync per iteration).
-    Returns (T [B,4,4], chi2 [B], n_px [B] int32)."""
+    """The non-fused GN loop of one level for B lanes at once (the JAX
+    package's vmapped lax.while_loop): K5's batched level, one launch per
+    level on the card, its plain loop on the CPU. Returns (T [B,4,4], chi2
+    [B], n_px [B] int32)."""
     L = _damped_cholesky(J, ok)
-    B = X_ref.shape[0]
-    dev = X_ref.device
-
-    def terms(T):
-        Xc = lie.se3_apply(T[:, None], X_ref).contiguous()
-        b, chi_sum, n = gk.accumulate_gn(cur_img, Xc, ref_patch, J, ok, fx, fy, cx, cy)
-        n = torch.clamp(n, min=1)
-        return b, chi_sum / n, n
-
-    best_T = T
-    best = torch.full((B,), float("inf"), device=dev)
-    active = torch.ones((B,), dtype=torch.bool, device=dev)
-    for it in range(iters):
-        b, chi2, _ = terms(T)
-        improved = chi2 < best
-        best_T = torch.where((active & improved)[:, None, None], T, best_T)
-        best = torch.where(active, torch.minimum(chi2, best), best)
-        delta = torch.cholesky_solve(b[..., None], L)[..., 0]
-        T_next = T @ lie.se3_exp(-delta)
-        stop = (delta.abs().amax(-1) < 1e-7) | ((it > 0) & ~improved)
-        T = torch.where(active[:, None, None], T_next, T)
-        active = active & ~stop
-    # the last iterate was never chi2-evaluated inside the loop
-    _, chi2_T, n_T = terms(T)
-    T_out = torch.where((chi2_T <= best)[:, None, None], T, best_T)
-    return T_out, torch.minimum(chi2_T, best), n_T
+    return gk.align_level_batched(cur_img, X_ref.contiguous(), ref_patch, J, ok, L.contiguous(),
+                                  T.contiguous(), fx, fy, cx, cy, iters)
 
 
 def align_batched(

@@ -4,6 +4,7 @@ rendered frame pair; one level (align_level) against the JAX level loop
 _align_level, at full and ragged point counts; and the kernel's output
 contract (the views the wrapper returns)."""
 
+import pathlib
 import re
 
 import jax.numpy as jnp
@@ -127,11 +128,12 @@ def _level_inputs(rendered, n_pts, level=2, seed=3):
     return cur, X, patch, J, ok, T_init, (CAM.fx * s, CAM.fy * s, CAM.cx * s, CAM.cy * s)
 
 
-@pytest.mark.parametrize("n_pts", [1024, 1000], ids=["N1024", "ragged_N1000"])
+@pytest.mark.parametrize("n_pts", [1024, 1000, 4096], ids=["N1024", "ragged_N1000", "N4096"])
 def test_align_level_matches_jax_level_loop(rendered, n_pts):
     """K1's function (plain on the CPU) against the JAX level loop
     (_align_level, fused=False) on the same precomputed level; N = 1000
-    leaves the card's 8-CTA split ragged."""
+    leaves the card's 8-CTA split ragged; N = 4096 is past the points whose
+    invariants the card's CTAs stage (the rest read from global memory)."""
     cur, X, patch, J, ok, T_init, intr = _level_inputs(rendered, n_pts)
     Hinv = tia.damped_hessian_inverse(J, ok)
     T, chi2, n = tak.align_level(torch.from_numpy(cur), torch.from_numpy(X), patch, J, ok, Hinv,
@@ -170,16 +172,22 @@ def test_kernel_output_views_contract(rendered):
 
 
 def test_kernel_bound_matches_wrapper():
-    """csrc/align_level.cu bounds N where kernels/align_kernel.py does, at
-    the most points whose invariants (J 24 + patch 4 + mask 1 bytes per
-    tap, X 12 bytes per point) fit one of the 8 CTAs' shared memory."""
-    src = (_build.CSRC / "align_level.cu").read_text()
+    """csrc/sd_align.cuh splits each CTA's share of the points where
+    kernels/align_kernel.py says it does: the first STAGE_MAX points are
+    staged in shared memory (the most whose invariants, J 24 + patch 4 +
+    mask 1 bytes per tap and X 12 bytes per point, fit AL_DYN_MAX), the rest
+    are read from global memory; no bound on N is left in the wrapper or
+    the sources."""
+    src = (_build.CSRC / "sd_align.cuh").read_text()
     define = {k: int(re.search(rf"#define {k} (\d+)", src).group(1))
-              for k in ("AL_N_MAX", "AL_DYN_MAX", "AL_CLUSTER", "AL_PATCH")}
-    assert define["AL_N_MAX"] == tak.N_MAX and define["AL_PATCH"] == tak.PATCH
-
-    def inv_bytes(n):
-        nc = -(-n // define["AL_CLUSTER"])
-        return nc * (define["AL_PATCH"] * 29 + 12)
-
-    assert inv_bytes(tak.N_MAX) <= define["AL_DYN_MAX"] < inv_bytes(tak.N_MAX + 1)
+              for k in ("AL_STAGE_MAX", "AL_DYN_MAX", "AL_CLUSTER", "AL_PATCH")}
+    assert (define["AL_STAGE_MAX"], define["AL_CLUSTER"], define["AL_PATCH"]) == (
+        tak.STAGE_MAX, tak.CLUSTER, tak.PATCH)
+    pt_bytes = define["AL_PATCH"] * 29 + 12
+    assert tak.STAGE_MAX * pt_bytes <= define["AL_DYN_MAX"] < (tak.STAGE_MAX + 1) * pt_bytes
+    # shares of 1/8 of the points: whole up to 8 x STAGE_MAX = 3872, capped past it
+    assert [tak.staged_points(n) for n in (1000, 1024, 3872, 3880, 4096, 8192)] == [
+        125, 128, 484, 484, 484, 484]
+    for path in (_build.CSRC / "sd_align.cuh", _build.CSRC / "align_level.cu",
+                 pathlib.Path(tak.__file__)):
+        assert not re.search(r"\b(AL_)?N_MAX\b", path.read_text()), path

@@ -1,7 +1,8 @@
 """Pose-only GN: the port's optimize_pose (kernel K2's plain version on the
 CPU) against sdslam_tpu's optimize_pose(fused=False), with and without a
 pose prior, including prior deviations past the 0.5 rad range of the TPU
-kernel's series log."""
+kernel's series log; and the views the K2 wrapper returns of the kernel's
+output buffer."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +13,7 @@ from sdslam_tpu.geometry import camera as jcam
 from sdslam_tpu.geometry import lie as jlie
 from sdslam_tpu.solvers import pose_opt as jpo
 from sdslam_tpu_torch.geometry.camera import CameraModel as TCam
+from sdslam_tpu_torch.kernels import pose_kernel as pk
 from sdslam_tpu_torch.solvers import pose_opt as tpo
 
 torch.set_num_threads(2)
@@ -80,3 +82,32 @@ def test_mono_only_edges():
                           rounds=4, iters_per_round=10)
     np.testing.assert_allclose(np.asarray(a.Tcw), b.Tcw.numpy(), atol=1e-4)
     np.testing.assert_array_equal(np.asarray(a.inliers), b.inliers.numpy())
+
+
+def test_kernel_output_views_contract():
+    """The views the K2 wrapper makes of the kernel's one output buffer
+    have the plain version's types and shapes, without a copy: T [4,4] f32
+    (the kernel writes the bottom row [0, 0, 0, 1]), the inlier mask [N]
+    bool, n_inliers 0-d int32 and chi2 0-d f32."""
+    X, uv, ur, isig, valid, T_init, _ = _problem(3, n=64)
+    edata = pk.pack_edges(*(torch.from_numpy(a) for a in (X, uv, ur, isig, valid)),
+                          torch.from_numpy(ur >= 0))
+    eye = torch.eye(4)
+    plain = pk.pose_optimize_plain(edata, torch.from_numpy(T_init), eye, torch.zeros(2),
+                                   *(CAM_ARGS[k] for k in ("fx", "fy", "cx", "cy", "bf")),
+                                   rounds=2, iters=5, has_prior=False)
+    Tp, mp, n_p, cp = plain
+    N = X.shape[0]
+    # the bytes the kernel writes for these results
+    out = torch.zeros(pk.OUT_HEAD + N, dtype=torch.uint8)
+    head = out[:pk.OUT_HEAD]
+    head.view(torch.float32)[:16] = Tp.reshape(-1)
+    head.view(torch.float32)[16] = cp
+    head.view(torch.int32)[17] = n_p
+    out[pk.OUT_HEAD:] = mp.to(torch.uint8)
+    views = pk._views(out, N)
+    for v, p in zip(views, plain):
+        assert (v.dtype, v.shape) == (p.dtype, p.shape)
+        assert torch.equal(v, p)
+        assert v.untyped_storage().data_ptr() == out.untyped_storage().data_ptr()  # no copy
+    assert torch.equal(Tp[3], torch.tensor([0.0, 0.0, 0.0, 1.0]))
