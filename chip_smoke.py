@@ -8,12 +8,12 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
   1. device   card name / power limit (nvidia-smi), torch name, capability
   2. build    nvcc for every kernel source, all in parallel; then each
               compiled function's registers, shared memory and spills
-  3. kernels  each CUDA kernel against its plain PyTorch version on the
-              card at main-path shapes, with median times (CUDA events
-              around one wrapper call), device times (torch.profiler, the
-              kernel's own events), the least time the card could take
-              (bound) and, where one PyTorch call computes the same
-              function, that call's time
+  3. kernels  each CUDA kernel (K4 in both its forms) against its plain
+              PyTorch version on the card at main-path shapes, with
+              median times (CUDA events around one wrapper call), device
+              times (torch.profiler, the kernel's own events), the least
+              time the card could take (bound) and, where one PyTorch call
+              computes the same function, that call's time
   4. main     the RGB-D tracking + keyframe-mapping path at full size
               (640x480, 1024 keypoints, 256 KF slots, 16384 points) on a
               60-frame synthetic orbit rendered on the card; checks ATE,
@@ -261,6 +261,53 @@ def _ba_inputs(dev, K: int, Mo: int = 10, P: int = 2048):
     return (packed, lam, cam.fx, cam.fy, cam.cx, cam.cy, cam.bf, True, K)
 
 
+WINDOW_PX = 8.0  # half width of the search window around a projection
+
+
+def _window_mask(uv_proj, q_valid, q_oct, kp_uv, kp_valid, kp_oct, radius: float = WINDOW_PX):
+    """The gating mask of features/matching.py:window_match, written out
+    here so that both trees of scripts/profile_torch_kernels.py can make it:
+    the window around each projection, both sides valid, the octave gate
+    [octave - 1, octave + 1]."""
+    du = torch.abs(uv_proj[:, None, 0] - kp_uv[None, :, 0])
+    dv = torch.abs(uv_proj[:, None, 1] - kp_uv[None, :, 1])
+    mask = (du <= radius) & (dv <= radius)
+    mask &= q_valid[:, None] & kp_valid[None, :]
+    mask &= (kp_oct[None, :] >= q_oct[:, None] - 1) & (kp_oct[None, :] <= q_oct[:, None] + 1)
+    return mask
+
+
+def _best2_inputs(dev, na: int, nb: int):
+    """A windowed search at the main path's shapes: nb keypoints in the
+    640x480 image, a quarter of them near-copies of another (1 px away, the
+    same descriptor and octave: ties for the first minimum), and na
+    projections, each within ~3 px of a keypoint with ~13 of its 256 bits
+    flipped; 5% of the queries invalid and some projections off the image
+    (rows with every pair masked). Returns (da, db, window-mask args)."""
+    g = torch.Generator(device="cpu").manual_seed(SEED + 6)
+    cam = main_camera()
+
+    def bits(n, p):
+        b = (torch.rand(n, 8, 32, generator=g) < p).to(torch.int64) << torch.arange(32)
+        return b.sum(-1).to(torch.int32)  # wraps to int32 bit patterns
+
+    db = bits(nb, 0.5)
+    kp_uv = torch.rand(nb, 2, generator=g) * torch.tensor([cam.width, cam.height])
+    kp_oct = torch.randint(0, 5, (nb,), generator=g)
+    dup = torch.arange(nb // 4, nb // 2)
+    src = torch.randint(0, nb // 4, (dup.numel(),), generator=g)
+    db[dup], kp_oct[dup] = db[src], kp_oct[src]
+    kp_uv[dup] = kp_uv[src] + torch.rand(dup.numel(), 2, generator=g) * 2 - 1
+    kp_valid = torch.rand(nb, generator=g) < 0.97
+    t = torch.randint(0, nb, (na,), generator=g)
+    da = db[t] ^ bits(na, 0.05)
+    uv = kp_uv[t] + torch.randn(na, 2, generator=g) * 3.0
+    uv[torch.rand(na, generator=g) < 0.03] += 1000.0
+    q_valid = torch.rand(na, generator=g) < 0.95
+    args = (uv, q_valid, kp_oct[t], kp_uv, kp_valid, kp_oct)
+    return da.to(dev), db.to(dev), tuple(a.to(dev) for a in args)
+
+
 def _batched_inputs(dev, level: int, B: int = 256, n_pts: int = 1024, n_refs: int = 8,
                     invalid_lanes=()):
     """One batched alignment level at the relocalization shapes: B lanes
@@ -492,6 +539,45 @@ def phase_kernels(dev):
                       "library_ms": median_ms(lambda: torch.cdist(ba_, bb_, p=0))})
     emit("kernel", name="hamming", tol="exact", cases=cases)
     rows["hamming"] = cases
+
+    # K4's fused form (mask, best and second best): exact, ties (d1 == d2)
+    # and rows with every pair masked present in each case. The whole
+    # call's device time beside that of the matrix form + torch sequence it
+    # replaces on the windowed searches (the parent's masked_dist + best2)
+    # and of the torch ops that build the window mask before it
+    from sdslam_tpu_torch.ops import hamming as ham
+
+    cases = []
+    for na, nb in ((1024, 1024), (16384, 1024)):
+        da, db, margs = _best2_inputs(dev, na, nb)
+        mask = _window_mask(*margs)
+        out = hk.hamming_masked_best2(da, db, mask)
+        ref = hk.hamming_masked_best2_plain(da, db, mask)
+        torch.cuda.synchronize()
+        for what, a, b in zip(("d1", "j1", "d2"), out, ref):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"hamming_best2 {na}x{nb}: {what} kernel != plain")
+        d1, _, d2 = ref
+        ties = int(((d1 == d2) & (d1 < ham.BIG)).sum())
+        masked_rows = int((d1 == ham.BIG).sum())
+        if not (ties and masked_rows):
+            raise AssertionError(f"hamming_best2 {na}x{nb}: {ties} ties, {masked_rows} masked rows")
+        pairs = int(mask.sum())
+        bms, by = bound(nbytes(da, db, mask, *out), pairs * 8 * HAMMING_OPS_PER_WORD)
+        cases.append({"shape": [na, nb], "max_abs_err": 0.0, "unmasked_pairs": pairs,
+                      "tie_rows": ties, "masked_rows": masked_rows,
+                      "ms": median_ms(lambda: hk.hamming_masked_best2(da, db, mask)),
+                      **device_profile(lambda: hk.hamming_masked_best2(da, db, mask),
+                                       ("hamming_best2_kernel",)),
+                      "seq_device_all_ms": device_profile(
+                          lambda: ham.best2(ham.masked_dist(da, db, mask)),
+                          ("hamming_kernel",))["device_all_ms"],
+                      "mask_device_all_ms": device_profile(lambda: _window_mask(*margs),
+                                                           ("",))["device_all_ms"],
+                      "plain_ms": median_ms(lambda: hk.hamming_masked_best2_plain(da, db, mask)),
+                      "bound_ms": bms, "bound_by": by, "library_ms": None})
+    emit("kernel", name="hamming_best2", tol="exact", cases=cases)
+    rows["hamming_best2"] = cases
 
     # K1: T within 1e-4 (its bottom row exactly [0, 0, 0, 1]), chi2 within
     # 1e-4 relative, n_px equal (the tracker gates alignment on both) and
@@ -809,6 +895,10 @@ KERNEL_META = {
                  "sdslam_tpu/ops/pallas/ba_schur_kernel.py:258"),
     "hamming": ("sdslam_tpu_torch/csrc/hamming.cu",
                 "sdslam_tpu/ops/pallas/hamming_kernel.py:56"),
+    # K4's fused form: the same TPU kernel's distances with the masking and
+    # best-two reduction its callers ran around it
+    "hamming_best2": ("sdslam_tpu_torch/csrc/hamming.cu",
+                      "sdslam_tpu/ops/pallas/hamming_kernel.py:56"),
     "accumulate_gn": ("sdslam_tpu_torch/csrc/accumulate_gn.cu",
                       "sdslam_tpu/ops/pallas/align_kernel.py:405"),
     # K5's batched level: the same TPU kernel's work on the path, the
@@ -824,13 +914,16 @@ KERNEL_META = {
 # the kernels each path must launch (K5's one-evaluation form and ba_edge
 # are on no path: relocalization and loop detection run K5's batched level,
 # and neither package calls ba_edge while tracking; phase 3 is their entry
-# point)
+# point). The windowed searches of every path run K4's fused form; the
+# mutual brute-force search of relocalization and loop closing its matrix
+# form.
 PATH_KERNELS = {
-    "main": ("align_level", "pose_gn", "ba_schur", "hamming", "chol_solve"),
-    "reloc": ("align_batched", "pose_gn", "hamming"),
-    "loop": ("align_batched", "hamming", "ba_schur", "chol_solve"),
-    "mono": ("align_level", "pose_gn", "ba_schur", "hamming", "align_batched", "chol_solve"),
-    "fusion": ("align_level", "pose_gn", "ba_schur", "hamming", "chol_solve"),
+    "main": ("align_level", "pose_gn", "ba_schur", "hamming_best2", "chol_solve"),
+    "reloc": ("align_batched", "pose_gn", "hamming", "hamming_best2"),
+    "loop": ("align_batched", "hamming", "hamming_best2", "ba_schur", "chol_solve"),
+    "mono": ("align_level", "pose_gn", "ba_schur", "hamming_best2", "align_batched",
+             "chol_solve"),
+    "fusion": ("align_level", "pose_gn", "ba_schur", "hamming_best2", "chol_solve"),
 }
 
 
@@ -842,6 +935,7 @@ def launch_counters():
     )
     return {"align_level": (align_kernel, "LAUNCHES"), "pose_gn": (pose_kernel, "LAUNCHES"),
             "ba_schur": (ba_schur_kernel, "LAUNCHES"), "hamming": (hamming_kernel, "LAUNCHES"),
+            "hamming_best2": (hamming_kernel, "BEST2_LAUNCHES"),
             "accumulate_gn": (accumulate_gn_kernel, "LAUNCHES"),
             "align_batched": (accumulate_gn_kernel, "LEVEL_LAUNCHES"),
             "chol_solve": (chol_kernel, "LAUNCHES"), "ba_edge": (ba_edge_kernel, "LAUNCHES")}
@@ -1348,7 +1442,9 @@ def main():
                                     "library_ms")},
             "cases": [{k: c[k] for k in c if k in ("shape", "level", "B", "K", "N", "E", "n",
                                                    "prior_rad", "system", "ms", "device_ms",
-                                                   "kernels_per_call", "plain_ms", "bound_ms",
+                                                   "kernels_per_call", "device_all_ms",
+                                                   "seq_device_all_ms", "mask_device_all_ms",
+                                                   "worst_err_over_tol", "plain_ms", "bound_ms",
                                                    "bound_by", "library_ms")}
                       for c in cases],
         })

@@ -10,8 +10,10 @@ profile/, runs each once at chip_smoke.py's phase-3 shapes and prints the
 clock64() cycles thread 0 (of lane 0's first CTA) spent in each phase of
 the kernel and each build's ptxas line.
 
-Times: for every kernel at chip_smoke.py's phase-3 shapes, and for one
-batched alignment level (solvers/image_align.py:_align_level_batched at
+Times: for every kernel at chip_smoke.py's phase-3 shapes (K4 also as the
+windowed searches call it: the fused form, and the matrix form followed by
+the torch masking and best-two ops it replaces), and for one batched
+alignment level (solvers/image_align.py:_align_level_batched at
 B = 256, N = 1024, levels 4 and 3, 15 iterations), the wrapper's time as
 chip_smoke.py measures it (CUDA events around one call, median of 25), the
 device time of the kernel's own events and of every device event of the
@@ -51,6 +53,7 @@ LEVEL_ITERS = 15
 # the kernels' own device events, by function name (either tree's)
 OWN = {"align_level": ("align_level_kernel",), "pose_gn": ("pose_gn_kernel",),
        "ba_schur": ("ba_schur_kernel",), "hamming": ("hamming_kernel",),
+       "hamming_seq": ("hamming_kernel",), "hamming_best2": ("hamming_best2_kernel",),
        "accumulate_gn": ("accumulate_gn_kernel", "align_level_kernel"),
        "chol_solve": ("chol_solve_kernel",), "ba_edge": ("ba_edge_kernel",),
        "align_batched": ("accumulate_gn_kernel", "align_level_kernel")}
@@ -125,6 +128,17 @@ def timings(root: Path, tag: str):
         da, db = (torch.randint(-2**31, 2**31 - 1, (m, 8), generator=g, dtype=torch.int64)
                   .to(torch.int32).to(dev) for m in (na, nb))
         report("hamming", lambda: hk.hamming_matrix(da, db), shape=[na, nb])
+    from sdslam_tpu_torch.ops import hamming as ham
+
+    for na, nb in HAMMING_SHAPES:
+        da, db, margs = cs._best2_inputs(dev, na, nb)
+        mask = cs._window_mask(*margs)
+        # the windowed searches' call: the matrix form + torch (every tree),
+        # K4's fused form (trees that have it)
+        report("hamming_seq", lambda: ham.best2(ham.masked_dist(da, db, mask)), shape=[na, nb])
+        if hasattr(hk, "hamming_masked_best2"):
+            report("hamming_best2", lambda: hk.hamming_masked_best2(da, db, mask),
+                   shape=[na, nb])
     for level in LEVELS:
         args = cs._gn_inputs(dev, level)
         report("accumulate_gn", lambda: gk.accumulate_gn(*args), level=level, B=256, N=1024)

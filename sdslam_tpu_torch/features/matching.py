@@ -3,8 +3,8 @@ sdslam_tpu/features/matching.py: the searches of RGB-D tracking,
 relocalization and loop closing).
 
 Each routine is a dense masked computation over fixed-capacity arrays:
-project -> geometric gating mask -> masked Hamming matrix (kernel K4) ->
-per-query best -> per-target conflict resolution.
+project -> geometric gating mask -> per-query best two of the masked
+Hamming distances (kernel K4) -> per-target conflict resolution.
 """
 
 from __future__ import annotations
@@ -54,8 +54,7 @@ def window_match(
         mask &= (kp_octave[None, :] >= q_octave[:, None] + lo) & (
             kp_octave[None, :] <= q_octave[:, None] + hi
         )
-    dist = ham.masked_dist(q_desc, kp_desc, mask)
-    d1, j1, d2 = ham.best2(dist)
+    d1, j1, d2 = ham.masked_best2(q_desc, kp_desc, mask)
     ok = q_valid & (d1 <= th_desc)
     if ratio is not None:
         ok &= d1.to(torch.float32) < ratio * d2.to(torch.float32)

@@ -38,6 +38,7 @@ LAUNCHES = 0
 N_IN = 28
 N_EDGE = 51
 ZT_MAX_K = 64
+MAX_MO = 62  # observations per point whose edges fit the kernel's shared memory
 
 
 def _chol3x3_inv(h00, h01, h02, h11, h12, h22):
@@ -151,6 +152,9 @@ def ba_edge_schur(packed, lm_lambda, fx: float, fy: float, cx: float, cy: float,
         return ba_edge_schur_plain(packed, lam, fx, fy, cx, cy, bf, use_huber, K, emit_zt)
     if emit_zt and K > ZT_MAX_K:
         raise ValueError(f"emit_zt needs K <= {ZT_MAX_K}, got {K}")
+    if not 1 <= packed.shape[1] <= MAX_MO:
+        raise ValueError(f"the kernel takes 1 to {MAX_MO} observations per point, "
+                         f"got {packed.shape[1]}")
     _device.check_tensor("packed", packed, torch.float32, (N_IN, None, None))
     lam = lam.reshape(1).contiguous()
     _, Mo, P = packed.shape

@@ -200,7 +200,7 @@ def triangulate_new_points(cam: CameraModel, ms: M.MapState, kf_slot, scale_fact
         den = torch.sqrt(torch.clamp(lines2[:, 0] ** 2 + lines2[:, 1] ** 2, min=1e-9))[:, None]
         sigma2 = scale_factor ** (2.0 * oct2_all.to(torch.float32))
         mask = free1[:, None] & free2[None, :] & (num / den < 3.84 * torch.sqrt(sigma2)[None, :])
-        dbest, jbest, _ = ham.best2(ham.masked_dist(d1, take(ms.kf_desc, nb), mask))
+        dbest, jbest, _ = ham.masked_best2(d1, take(ms.kf_desc, nb), mask)
         okm = free1 & (dbest <= th_desc)
         j = torch.clamp(jbest, 0, N - 1)
         uv2 = uv2_all[j]

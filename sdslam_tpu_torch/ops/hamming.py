@@ -1,9 +1,10 @@
 """Hamming-distance matching primitives for packed 256-bit ORB descriptors
 (port of sdslam_tpu/ops/hamming.py).
 
-Descriptors are [N, 8] int32 (uint32 bit patterns). The distance matrix
-runs in kernel K4 (kernels/hamming_kernel.py) on the card; every masked
-distance of the main path goes through it.
+Descriptors are [N, 8] int32 (uint32 bit patterns). Every distance runs
+in kernel K4 (kernels/hamming_kernel.py) on the card: the windowed
+searches through its fused form (`masked_best2`), the mutual brute-force
+search through the matrix form.
 """
 
 from __future__ import annotations
@@ -12,11 +13,11 @@ import torch
 
 from sdslam_tpu_torch._util import scatter_min, topk_stable
 from sdslam_tpu_torch.kernels import hamming_kernel
+from sdslam_tpu_torch.kernels.hamming_kernel import BIG, best2  # noqa: F401 (re-exported)
 
 TH_LOW = 50
 TH_HIGH = 100
 HISTO_BINS = 30
-BIG = 1 << 20
 
 
 def hamming_matrix(da, db):
@@ -35,13 +36,11 @@ def masked_dist(da, db, mask):
     return torch.where(mask, d, torch.full_like(d, BIG))
 
 
-def best2(dist):
-    """Per-row best and second-best: returns (d1, j1, d2)."""
-    j1 = torch.argmin(dist, dim=1)  # first minimum, as jnp.argmin
-    d1 = torch.gather(dist, 1, j1[:, None])[:, 0]
-    rows = torch.arange(dist.shape[0], device=dist.device)
-    dist2 = dist.index_put((rows, j1), torch.full_like(d1, BIG))
-    return d1, j1, torch.amin(dist2, dim=1)
+def masked_best2(da, db, mask):
+    """best2(masked_dist(da, db, mask)) without the matrix: per row
+    (d1, j1, d2). mask: [Qa,Qb] bool."""
+    return hamming_kernel.hamming_masked_best2(da.contiguous(), db.contiguous(),
+                                               mask.contiguous())
 
 
 def resolve_to_targets(best_j, best_d, q_valid, n_targets: int):

@@ -37,9 +37,9 @@ def _rel_close(a, b, rel=1e-4):
     assert np.abs(a - b).max() <= rel * scale, (np.abs(a - b).max(), scale)
 
 
-def _terms_inputs(seed, stereo):
+def _terms_inputs(seed, stereo, m_obs=M_OBS):
     ms, *_ = make_ba_problem(np.random.default_rng(seed), noise_px=0.3, stereo=stereo)
-    obs_kf, obs_kp = JM.build_obs_lists(ms, M_OBS)
+    obs_kf, obs_kp = JM.build_obs_lists(ms, m_obs)
     cam_active = np.asarray(ms.kf_valid).copy()
     cam_active[0] = False
     return ms, obs_kf, obs_kp, cam_active
@@ -55,9 +55,8 @@ def _port_terms(ms, obs_kf, obs_kp, cam_active, lam):
                             torch.tensor(lam))
 
 
-@pytest.mark.parametrize("stereo", [False, True], ids=["mono", "stereo"])
-def test_schur_terms_match_xla(stereo):
-    ms, obs_kf, obs_kp, cam_active = _terms_inputs(3, stereo)
+def _check_schur_terms(stereo, m_obs=M_OBS):
+    ms, obs_kf, obs_kp, cam_active = _terms_inputs(3, stereo, m_obs)
     lam = 1e-3
     es = jba._prep_edges(obs_kf, obs_kp, ms.kf_uv_und, ms.kf_uright, ms.kf_octave, 2.0, ms.K)
     a = jba._schur_terms(JC, ms.kf_Tcw, ms.pt_pos, es, obs_kf >= 0, jnp.asarray(cam_active),
@@ -68,6 +67,19 @@ def test_schur_terms_match_xla(stereo):
         _rel_close(a[i], b[i].numpy())
     _rel_close(float(a[5]), float(b[5]))
     assert np.abs(np.asarray(a[0])).max() > 1.0  # a real system, not an empty one
+    return obs_kf
+
+
+@pytest.mark.parametrize("stereo", [False, True], ids=["mono", "stereo"])
+def test_schur_terms_match_xla(stereo):
+    _check_schur_terms(stereo)
+
+
+def test_schur_terms_match_xla_global_width():
+    """Global BA's observation width (max_obs 16; local BA packs 10). The
+    problem has 8 keyframe slots, so planes 8-15 hold only empty edges."""
+    obs_kf = _check_schur_terms(True, 16)
+    assert np.asarray(obs_kf).shape[1] == 16
 
 
 def test_schur_zt_and_ze_modes_agree(monkeypatch):

@@ -52,13 +52,43 @@ def _same(ja, tt):
 def test_hamming_matrix_exact(shape):
     rng = np.random.default_rng(shape[0])
     da, db = _desc(rng, shape[0]), _desc(rng, shape[1])
-    before = thk.LAUNCHES
+    before = (thk.LAUNCHES, thk.BEST2_LAUNCHES)
     out = th.hamming_matrix(_t(da), _t(db))
-    assert thk.LAUNCHES == before  # CPU tensors take the plain version
+    fused = th.masked_best2(_t(da), _t(db), torch.ones(shape, dtype=torch.bool))
+    # CPU tensors take the plain versions of both forms
+    assert (thk.LAUNCHES, thk.BEST2_LAUNCHES) == before
     _same(jh.hamming_matrix(jnp.asarray(da), jnp.asarray(db)), out)
+    for a, b in zip(jh.best2(jh.hamming_matrix(jnp.asarray(da), jnp.asarray(db))), fused):
+        _same(a, b)
     n = min(shape)
     _same(jh.hamming_vec(jnp.asarray(da[:n]), jnp.asarray(db[:n])), th.hamming_vec(_t(da[:n]),
                                                                                  _t(db[:n])))
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (37, 53), (300, 257)])
+def test_masked_best2_exact(shape):
+    """K4's fused form (plain on the CPU) against JAX's best2(masked_dist):
+    duplicated targets make first-minimum ties, and every pair of some rows
+    is masked (d1 = BIG at index 0)."""
+    na, nb = shape
+    rng = np.random.default_rng(100 + na)
+    db = _desc(rng, nb)
+    db[nb // 2:] = db[:nb - nb // 2]
+    da = _flip(rng, db[rng.integers(0, nb, size=na)], 12)
+    mask = rng.uniform(size=shape) < 0.5
+    mask[::3] = False
+    mask[1::3, : (nb + 1) // 2] = True  # both copies of a target: ties
+    mask[1::3, nb // 2:] = True
+    ja, jb, jm_ = jnp.asarray(da), jnp.asarray(db), jnp.asarray(mask)
+    out = th.masked_best2(_t(da), _t(db), torch.from_numpy(mask))
+    ref = jh.best2(jh.masked_dist(ja, jb, jm_))
+    for a, b in zip(ref, out):
+        _same(a, b)
+    assert [t.dtype for t in out] == [torch.int32, torch.int64, torch.int32]
+    d1, _, d2 = (np.asarray(r) for r in ref)
+    assert (d1 == th.BIG).any()
+    if nb > 1:
+        assert ((d1 == d2) & (d1 < th.BIG)).any()
 
 
 def test_best2_resolve_rotation_exact():
