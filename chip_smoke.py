@@ -30,9 +30,15 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
   8. fusion   the monocular + IMU SDSlamSystem on a jerky direction-
               reversing sequence with gyro and accelerometer synthesized
               from the ground truth; the device IMU filter must follow
+  9. io       the recorded-data paths at the main configuration: a 40-frame
+              orbit written as a TUM sequence and tracked by the CLI's
+              `rgbd` subcommand (TUM trajectory, npz and YAML maps); both
+              maps loaded into fresh systems that relocalize against them;
+              phase 8's sequence written as EuRoC and tracked by `fusion`;
+              the StreamRunner over 10 frames with late depth messages
 Then the kernel table as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Launch counters are set to 0 before each of
-phases 4-8 and read after it.
+phases 4-9 and read after it.
 
 It imports nothing from JAX or the JAX package and never runs on the CPU.
 """
@@ -924,6 +930,8 @@ PATH_KERNELS = {
     "mono": ("align_level", "pose_gn", "ba_schur", "hamming_best2", "align_batched",
              "chol_solve"),
     "fusion": ("align_level", "pose_gn", "ba_schur", "hamming_best2", "chol_solve"),
+    "io": ("align_level", "pose_gn", "ba_schur", "hamming_best2", "hamming", "align_batched",
+           "chol_solve"),
 }
 
 
@@ -1389,6 +1397,192 @@ def phase_fusion(dev, n_frames: int = 16):
     return launches
 
 
+def config_yaml(cfg, path: str) -> str:
+    """Write `cfg` as a reference-keys config file (the keys load_config
+    reads) and check that it loads back to `cfg`."""
+    from sdslam_tpu_torch.utils.config import load_config
+
+    c, o, t, m = cfg.camera, cfg.orb, cfg.tracking, cfg.map
+    keys = {"Camera.fx": c.fx, "Camera.fy": c.fy, "Camera.cx": c.cx, "Camera.cy": c.cy,
+            "Camera.Width": c.width, "Camera.Height": c.height, "Camera.k1": c.k1,
+            "Camera.k2": c.k2, "Camera.p1": c.p1, "Camera.p2": c.p2, "Camera.k3": c.k3,
+            "Camera.bf": c.bf, "Camera.fps": c.fps, "ORBextractor.nFeatures": o.n_features,
+            "ORBextractor.scaleFactor": o.scale_factor, "ORBextractor.nLevels": o.n_levels,
+            "ORBextractor.thresholdFAST": o.fast_threshold, "ThDepth": t.th_depth,
+            "DepthMapFactor": t.depth_map_factor, "Map.MaxKeyframes": m.max_keyframes,
+            "Map.MaxPoints": m.max_points}
+    with open(path, "w") as f:
+        f.write("%YAML:1.0\n" + "".join(f"{k}: {v}\n" for k, v in keys.items()))
+    if load_config(path) != cfg:
+        raise AssertionError(f"io: {path} does not load back to the configuration")
+    return path
+
+
+def read_tum_poses(path: str) -> np.ndarray:
+    """A TUM trajectory file (ts tx ty tz qx qy qz qw, camera-to-world) as
+    world-to-camera [N,4,4]."""
+    from sdslam_tpu_torch.geometry import lie
+
+    rows = np.loadtxt(path, comments="#", ndmin=2)
+    q = torch.as_tensor(rows[:, [7, 4, 5, 6]], dtype=torch.float64)  # [w,x,y,z]
+    Twc = np.tile(np.eye(4), (len(rows), 1, 1))
+    Twc[:, :3, :3] = lie.quat_to_mat(q / q.norm(dim=1, keepdim=True)).numpy()
+    Twc[:, :3, 3] = rows[:, 1:4]
+    return np.linalg.inv(Twc)
+
+
+def phase_io(dev, n_frames: int = 40, n_stream: int = 10):
+    """The recorded-data paths at the main configuration, through the
+    entry points a user calls: the CLI on written TUM and EuRoC sequences,
+    the npz and YAML maps loaded into fresh systems, the StreamRunner.
+    Returns {kernel: launches}."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from sdslam_tpu_torch import cli
+    from sdslam_tpu_torch.io import datasets, stream, synthetic
+    from sdslam_tpu_torch.system import RGBD, SDSlamSystem
+    from sdslam_tpu_torch.utils import metrics
+    from sdslam_tpu_torch.utils.config import SystemConfig
+
+    cfg = main_config()
+    df = cfg.tracking.depth_map_factor
+    seq = synthetic.SyntheticSequence(cfg.camera, n_frames=n_frames, trajectory="orbit",
+                                      radius=0.06, yaw_amp=0.04, device=dev)
+    gt = seq.poses.numpy()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. a recording, written as a user's camera would leave it
+        t0 = time.perf_counter()
+        root = os.path.join(tmp, "tum")
+        datasets.write_tum_sequence(root, (seq.frame(i) for i in range(n_frames)), gt,
+                                    depth_factor=df)
+        cfg_path = config_yaml(cfg, os.path.join(tmp, "camera.yaml"))
+        ds = datasets.TUMRGBDDataset(root, depth_factor=df)
+        out["write_s"] = time.perf_counter() - t0
+
+        reset_launches()
+        # 2. the CLI on it, in this process so the launch counters see it
+        traj, npz = os.path.join(tmp, "trajectory.txt"), os.path.join(tmp, "map.npz")
+        ymap = os.path.join(tmp, "map.yaml")
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            cli.main(["rgbd", cfg_path, root, "--traj-out", traj, "--save-map", npz,
+                      "--save-trajectory-yaml", ymap])
+        torch.cuda.synchronize()
+        out["cli_s"] = time.perf_counter() - t0
+        progress = [line for line in log.getvalue().splitlines() if line.startswith("frame ")]
+        out["cli_progress"] = progress
+        out["cli_wall_fps"] = float(progress[-1].split()[-2])
+        est = read_tum_poses(traj)
+        gt_file = read_tum_poses(os.path.join(root, "groundtruth.txt"))
+        out["tum_lines"] = len(est)
+        out["ate_cm"] = metrics.ate_rmse(est, gt_file, align=False) * 100.0
+        out["gt_file_vs_render_m"] = float(np.abs(gt_file - gt).max())
+        if len(est) != n_frames or not np.all(np.isfinite(est)):
+            raise AssertionError(f"io: {len(est)} TUM lines, expected {n_frames} finite")
+        if not out["ate_cm"] < 2.0:
+            raise AssertionError(f"io: CLI rgbd ATE {out['ate_cm']:.3f} cm >= 2 cm")
+        with np.load(npz) as saved:
+            n_pts, n_kf = int(saved["pt_valid"].sum()), int(saved["kf_valid"].sum())
+            kf_pose = {int(f): T for f, T, v in zip(saved["kf_frame_id"], saved["kf_Tcw"],
+                                                    saved["kf_valid"]) if v}
+        out["map"] = {"keyframes": n_kf, "points": n_pts}
+
+        # 3. the npz map in a fresh system, relocalized against
+        sysm = SDSlamSystem(cfg, sensor=RGBD, device=dev)
+        t0 = time.perf_counter()
+        sysm.load_map(npz)
+        torch.cuda.synchronize()
+        out["npz_load_ms"] = (time.perf_counter() - t0) * 1e3
+        if int(sysm.tracker.ms.n_points()) != n_pts or sysm.get_tracking_state() != "LOST":
+            raise AssertionError("io: the loaded npz map differs or the tracker is not LOST")
+        sysm.activate_localization_mode()
+        errs, reloc_ms = {}, None
+        for i in (4, 5, 6):
+            ts, img, dep = ds.raw_frame(i)
+            t0 = time.perf_counter()
+            sysm.track_rgbd(img, dep, 100.0 + i * 0.03)
+            sysm.tracker.flush()
+            torch.cuda.synchronize()
+            if reloc_ms is None:
+                reloc_ms = (time.perf_counter() - t0) * 1e3
+            errs[i] = _pose_err(sysm.tracker.trajectory[-1], gt[i])
+            if sysm.tracker.st.status != "OK":
+                raise AssertionError(f"io: frame {i} on the npz map: {sysm.tracker.st.status}")
+        out["npz_reloc_ms"] = reloc_ms
+        out["npz_pose_err"] = {i: {"trans_m": e[0], "rot_rad": e[1]} for i, e in errs.items()}
+        if any(not (e[0] < 0.01 and e[1] < 0.01) for e in errs.values()):
+            raise AssertionError(f"io: pose errors on the npz map {errs}")
+        if int(sysm.tracker.ms.n_keyframes()) != n_kf:
+            raise AssertionError("io: localization mode changed the loaded map")
+
+        # 4. the YAML map in a fresh system
+        sysm = SDSlamSystem(cfg, sensor=RGBD, device=dev)
+        t0 = time.perf_counter()
+        ok = sysm.load_trajectory(ymap)
+        torch.cuda.synchronize()
+        out["yaml_load_ms"] = (time.perf_counter() - t0) * 1e3
+        ms = sysm.tracker.ms
+        kf_err = max(float(np.abs(T - kf_pose[int(f)]).max()) for f, T, v in zip(
+            ms.kf_frame_id.cpu().numpy(), ms.kf_Tcw.cpu().numpy(), ms.kf_valid.cpu().numpy())
+            if v)
+        out["yaml"] = {"keyframes": int(ms.kf_valid.sum()), "points": int(ms.pt_valid.sum()),
+                       "max_pose_diff": kf_err}
+        if not (ok and out["yaml"]["keyframes"] == n_kf and kf_err < 1e-3
+                and out["yaml"]["points"] > 50):
+            raise AssertionError(f"io: YAML map restored {out['yaml']} of {n_kf} keyframes")
+        ts, img, dep = ds.raw_frame(5)
+        t0 = time.perf_counter()
+        sysm.track_rgbd(img, dep, ts)
+        sysm.tracker.flush()
+        torch.cuda.synchronize()
+        e = _pose_err(sysm.tracker.trajectory[-1], gt[5])
+        out["yaml_reloc"] = {"status": sysm.tracker.st.status, "trans_m": e[0], "rot_rad": e[1],
+                             "ms": (time.perf_counter() - t0) * 1e3}
+
+        # 5. phase 8's sequence as a EuRoC recording through `fusion`
+        fcfg = SystemConfig()
+        poses = jerky_poses(16)
+        fseq = synthetic.SyntheticSequence(fcfg.camera, trajectory="custom", poses=poses,
+                                           device=dev)
+        frames = mono_frames(fseq, len(poses))
+        imu = synth_imu(poses)
+        eroot = os.path.join(tmp, "euroc")
+        datasets.write_euroc_sequence(eroot, [(ts, img) for img, ts in frames],
+                                      [(ts, m) for (_, ts), m in zip(frames, imu)])
+        ftraj = os.path.join(tmp, "fusion.txt")
+        with contextlib.redirect_stdout(log):
+            cli.main(["fusion", config_yaml(fcfg, os.path.join(tmp, "fusion.yaml")), eroot,
+                      "--no-loop-closing", "--traj-out", ftraj])
+        fest = read_tum_poses(ftraj)
+        out["fusion_sim3_ate_cm"] = metrics.ate_rmse(fest, poses, align=True,
+                                                     with_scale=True) * 100.0
+        if len(fest) != len(poses) or not out["fusion_sim3_ate_cm"] < 8.0:
+            raise AssertionError(f"io: fusion {len(fest)} poses, Sim3 ATE "
+                                 f"{out['fusion_sim3_ate_cm']:.3f} cm")
+
+        # 6. the stream runner, depth 2 ms behind each image
+        sysm = SDSlamSystem(cfg, sensor=RGBD, device=dev)
+        runner = stream.StreamRunner(sysm, sensor="rgbd", slop=0.02)
+        for i in range(n_stream):
+            ts, img, dep = ds.raw_frame(i)
+            runner.push_image(stream.ImageMsg(ts, img))
+            runner.push_depth(stream.ImageMsg(ts + 0.002, dep))
+        sysm.finish()
+        odo = runner.odometry
+        out["stream"] = {"odometry": len(odo), "tracked": sum(o.tracked for o in odo),
+                         "status": sysm.get_tracking_state()}
+        if len(odo) != n_stream or not all(np.all(np.isfinite(o.Twc)) for o in odo):
+            raise AssertionError(f"io: {len(odo)} odometry messages, expected {n_stream}")
+    launches = read_launches("io")
+    emit("io", frames=n_frames, launches=launches, **out)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the card")
@@ -1417,7 +1611,7 @@ def main():
     seconds["kernels"] = time.perf_counter() - t0
     by_path = {}
     for name, fn in (("main", phase_main), ("reloc", phase_reloc), ("loop", phase_loop),
-                     ("mono", phase_mono), ("fusion", phase_fusion)):
+                     ("mono", phase_mono), ("fusion", phase_fusion), ("io", phase_io)):
         t0 = time.perf_counter()
         by_path[name] = fn(dev)
         seconds[name] = time.perf_counter() - t0

@@ -9,9 +9,10 @@ uint32. The same pair exists for EKFState, IMUState, DeviceState (its
 "ekf" and "imu" entries as nested dicts) and the loop closer's
 ConsistencyState.
 
-These are test-side converters: their `device` defaults to "cpu", where
-the tests compare the port with the JAX package, unlike the port's entry
-points, which default to the card.
+The tests compare the port with the JAX package through them, and
+`SDSlamSystem.save_map` / `load_map` write and read the JAX package's npz
+layout with the map pair. Their `device` defaults to "cpu", where the
+tests run, unlike the port's entry points, which default to the card.
 """
 
 from __future__ import annotations

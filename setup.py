@@ -29,6 +29,7 @@ setup(
                                     "sdslam_tpu_torch", "sdslam_tpu_torch.*"]),
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "pyyaml", "pillow", "scipy"],
-    entry_points={"console_scripts": ["sdslam-tpu=sdslam_tpu.cli:main"]},
+    entry_points={"console_scripts": ["sdslam-tpu=sdslam_tpu.cli:main",
+                                      "sdslam-tpu-torch=sdslam_tpu_torch.cli:main"]},
     ext_modules=ext_modules,
 )

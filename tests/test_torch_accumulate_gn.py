@@ -148,6 +148,13 @@ def _jax_level_iterations(cur, T0, X, patch, J, ok, intr, iters):
     return it
 
 
+# jia._align_level jitted once for every lane (eagerly it re-traces and
+# compiles its while_loop on each call); fused and the intrinsics static, as
+# the eager call's Python constants
+_jax_align_level = jax.jit(jia._align_level, static_argnums=(6, 7, 8, 9, 10),
+                           static_argnames=("fused",))
+
+
 def test_batched_level_plain_matches_jax_lane_by_lane(maps):
     """K5's batched level (plain on the CPU) against JAX's _align_level
     (fused=False), lane by lane over every slot: T within 1e-4, chi2 within
@@ -163,7 +170,7 @@ def test_batched_level_plain_matches_jax_lane_by_lane(maps):
     cur = jnp.asarray(img.numpy())
     for b in range(X_ref.shape[0]):
         args = [jnp.asarray(a[b].numpy()) for a in (T0, X_ref, patch, J, ok)]
-        Tj, chi2j, nj = jia._align_level(cur, *args, *intr, 15, fused=False)
+        Tj, chi2j, nj = _jax_align_level(cur, *args, *intr, 15, fused=False)
         np.testing.assert_allclose(T[b].numpy(), np.asarray(Tj), atol=1e-4, err_msg=f"lane {b}")
         np.testing.assert_allclose(float(chi2[b]), float(chi2j), rtol=1e-4, err_msg=f"lane {b}")
         assert int(n[b]) == int(nj), b
