@@ -36,9 +36,24 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
               maps loaded into fresh systems that relocalize against them;
               phase 8's sequence written as EuRoC and tracked by `fusion`;
               the StreamRunner over 10 frames with late depth messages
+ 10. dist     the distributed solvers (sdslam_tpu_torch/parallel) at the
+              multi-chip dry run's production shapes, in ranks spawned on
+              the card: a world of one over NCCL and a world of four over
+              gloo (NCCL refuses two ranks on one card). Dist-BA at K = 64,
+              P = 16384, 8 observations per point, 2 GN iterations, and at
+              the small K = 8 map (K6); dist-PGO on a 96-keyframe ring with
+              a loop edge, 8 iterations; dist-align of slot 37's pyramid
+              against a 64-slot pool, 8 iterations. The two worlds must
+              agree (dT < 5e-4, dX < 5e-3, dS < 5e-4, dA < 1e-5), the loop
+              must close and slot 37 must win
+ 11. pipelined  phase 4's orbit through PipelinedRGBDTracker: tracking on
+              the current stream, each keyframe's mapping pass on a second
+              stream from a worker thread; ATE, keyframes, and the
+              tracking snapshot on the tracking device
 Then the kernel table as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Launch counters are set to 0 before each of
-phases 4-9 and read after it.
+phases 4-11 and read after it (phase 10's ranks count their own measured
+calls and return the counts).
 
 It imports nothing from JAX or the JAX package and never runs on the CPU.
 """
@@ -60,7 +75,11 @@ SEED = 0
 REPS = 25
 
 
+EMITTED = {}  # phase -> the last line it printed (later phases compare with it)
+
+
 def emit(phase: str, **kw):
+    EMITTED[phase] = kw
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
@@ -684,11 +703,16 @@ def phase_kernels(dev):
     # in a channel whose float32 conditioning is worse (the residual-derived
     # ones, u - u_obs cancels ~300 px to ~0.5 px), within 8x the float32
     # plain version's own error there
-    # the last case is the global-BA shape phase 6 packs: 256 KF slots,
-    # max_obs 16 observation planes over the 16384-point pool
+    # the third to sixth cases are phase 10's dist-BA (Zt emitted, 8
+    # observations per point): the 64-camera map of 16384 points at world
+    # 1 and one world-4 rank's 4096 of them, then the dry run's 8-slot map
+    # of 256 points at world 1 and one world-4 rank's 64; the last case is
+    # the global-BA shape phase 6 packs: 256 KF slots, max_obs 16
+    # observation planes over the 16384-point pool
     cases = []
     for K, emit_zt, Mo, P in ((24, True, 10, 2048), (80, False, 10, 2048),
-                              (256, False, 16, 16384)):
+                              (64, True, 8, 16384), (64, True, 8, 4096), (8, True, 8, 256),
+                              (8, True, 8, 64), (256, False, 16, 16384)):
         args = _ba_inputs(dev, K, Mo=Mo, P=P)
         out = bk.ba_edge_schur(*args, emit_zt=emit_zt)
         ref = bk.ba_edge_schur_plain(*args, emit_zt=emit_zt)
@@ -749,19 +773,24 @@ def phase_kernels(dev):
     # lane held to the plain loop: T within 1e-4, chi2 within 1e-4
     # relative, n_px and GN iterations equal. 256 lanes of 1024 points with
     # some all-invalid lanes (empty keyframe slots), 15 iterations, at
-    # levels 3 and 4, one ragged case (N = 1000); level 4 at N = 1024, the
-    # loop detector's call, last. One launch per level and no other device
-    # op (the profiler's count); the lanes the card runs at once
-    # (cudaOccupancyMaxActiveClusters)
+    # levels 3 and 4, one ragged case (N = 1000); then phase 10's
+    # dist-align, 8 iterations at levels 4 and 3 over 256 points per slot,
+    # every slot valid: 64 slots at world 1, one world-4 rank's 16; level 4
+    # at N = 1024, the loop detector's call, last. One launch per level and
+    # no other device op (the profiler's count); the lanes the card runs at
+    # once (cudaOccupancyMaxActiveClusters)
     from sdslam_tpu_torch.solvers import image_align as ia
 
     cases = []
-    invalid = (5, 77, 128, 255)
-    for level, n_pts in ((3, 1024), (3, 1000), (4, 1024)):
-        img, X, patch, J, okpx, T0, intr = _batched_inputs(dev, level, n_pts=n_pts,
+    reloc_invalid = (5, 77, 128, 255)
+    for level, n_pts, B, iters, invalid in (
+            (3, 1024, 256, 15, reloc_invalid), (3, 1000, 256, 15, reloc_invalid),
+            (4, 256, 64, 8, ()), (3, 256, 64, 8, ()), (4, 256, 16, 8, ()), (3, 256, 16, 8, ()),
+            (4, 1024, 256, 15, reloc_invalid)):
+        img, X, patch, J, okpx, T0, intr = _batched_inputs(dev, level, B=B, n_pts=n_pts,
                                                            invalid_lanes=invalid)
         L = ia._damped_cholesky(J, okpx).contiguous()
-        args = (img, X, patch, J, okpx, L, T0, *intr, 15)
+        args = (img, X, patch, J, okpx, L, T0, *intr, iters)
         out = gk._launch_level(*args)
         T, chi2, n, k_iter = gk._level_views(out, T0.shape[0])
         Tp, chi2p, np_, p_iter = gk.align_level_batched_steps(*args)
@@ -798,7 +827,7 @@ def phase_kernels(dev):
         if dp["kernels_per_call"] != 1.0 or dp["device_ops_per_call"] != 1.0:
             raise AssertionError(f"align_batched level {level}: {dp} (one launch per level)")
         H, W = img.shape
-        cases.append({"level": level, "hw": [H, W], "B": B, "N": N, "iters": 15,
+        cases.append({"level": level, "hw": [H, W], "B": B, "N": N, "iters": iters,
                       "invalid_lanes": list(invalid),
                       "max_abs_err": float(t_err.max()), "chi2_rel_err": float(c_rel.max()),
                       "gn_iterations_min_mean_max": [int(p_iter.min()), float(p_iter.float().mean()),
@@ -819,12 +848,14 @@ def phase_kernels(dev):
     # residual |Sx - b| / |b| <= 1e-4: random SPD systems at N = 30 and 228
     # (ragged last panels), the kernel's largest N, local BA's reduced
     # camera system at K = 24 (two fixed cameras under the 1e12 prior, the
-    # others under the trace-scaled LM damping), and a random [144, 144]
+    # others under the trace-scaled LM damping), the same at K = 8 (phase
+    # 10's dist-BA on the dry run's 8-slot map), and a random [144, 144]
     # last (the kernel table's row)
     from sdslam_tpu_torch.kernels import chol_kernel as ck
 
     cases = []
-    for N, system in ((30, "spd"), (228, "spd"), (ck.N_MAX, "spd"), (144, "ba"), (144, "spd")):
+    for N, system in ((30, "spd"), (228, "spd"), (ck.N_MAX, "spd"), (144, "ba"), (48, "ba"),
+                      (144, "spd")):
         S, b = _ba_system(dev, N // 6) if system == "ba" else _spd_system(dev, N)
         x = ck.chol_solve_dense(S, b)
         xp = ck.chol_solve_dense_plain(S, b)
@@ -932,32 +963,25 @@ PATH_KERNELS = {
     "fusion": ("align_level", "pose_gn", "ba_schur", "hamming_best2", "chol_solve"),
     "io": ("align_level", "pose_gn", "ba_schur", "hamming_best2", "hamming", "align_batched",
            "chol_solve"),
+    # dist-BA runs K3 (and K6 at the small K = 8 pool), dist-align K5's
+    # batched level; dist-PGO runs no kernel (the JAX package's neither)
+    "dist": ("ba_schur", "align_batched", "chol_solve"),
+    "pipelined": ("align_level", "pose_gn", "ba_schur", "hamming_best2", "chol_solve"),
 }
 
 
-def launch_counters():
-    """{kernel: (wrapper module, name of its launch counter)}."""
-    from sdslam_tpu_torch.kernels import (
-        accumulate_gn_kernel, align_kernel, ba_edge_kernel, ba_schur_kernel, chol_kernel,
-        hamming_kernel, pose_kernel,
-    )
-    return {"align_level": (align_kernel, "LAUNCHES"), "pose_gn": (pose_kernel, "LAUNCHES"),
-            "ba_schur": (ba_schur_kernel, "LAUNCHES"), "hamming": (hamming_kernel, "LAUNCHES"),
-            "hamming_best2": (hamming_kernel, "BEST2_LAUNCHES"),
-            "accumulate_gn": (accumulate_gn_kernel, "LAUNCHES"),
-            "align_batched": (accumulate_gn_kernel, "LEVEL_LAUNCHES"),
-            "chol_solve": (chol_kernel, "LAUNCHES"), "ba_edge": (ba_edge_kernel, "LAUNCHES")}
-
-
 def reset_launches():
-    for m, attr in launch_counters().values():
-        setattr(m, attr, 0)
+    from sdslam_tpu_torch import kernels
+
+    kernels.reset_counters()
 
 
-def read_launches(path: str):
-    """Launch counts since reset_launches(); fails if a kernel of `path`
-    never launched."""
-    launches = {k: getattr(m, attr) for k, (m, attr) in launch_counters().items()}
+def read_launches(path: str, launches=None):
+    """Launch counts since reset_launches() (or `launches`, counted
+    elsewhere); fails if a kernel of `path` never launched."""
+    from sdslam_tpu_torch import kernels
+
+    launches = kernels.read_counters() if launches is None else launches
     missing = [k for k in PATH_KERNELS[path] if launches[k] <= 0]
     if missing:
         raise AssertionError(f"{path} path never launched: {missing}")
@@ -1583,6 +1607,261 @@ def phase_io(dev, n_frames: int = 40, n_stream: int = 10):
     return launches
 
 
+def _dist_small_ba(world: int):
+    """The multi-chip dry run's small distributed-BA map (K = 8 slots, 4
+    keyframes, 48 * world points, exact poses, points off by 1 cm), as
+    numpy for the ranks; K6 solves its [48, 48] reduced system."""
+    from sdslam_tpu_torch import interop
+    from sdslam_tpu_torch.geometry import lie
+    from sdslam_tpu_torch.mapping import map_state as M
+
+    cam = main_camera()._replace(fx=160.0, fy=160.0, cx=79.5, cy=59.5, width=160, height=120,
+                                 bf=16.0)
+    rng = np.random.default_rng(0)
+    K, P, N, n_kf, n_pt = 8, 64 * world, 64, 4, 48 * world
+    X = rng.uniform([-1, -1, 1.5], [1, 1, 3.0], size=(n_pt, 3)).astype(np.float32)
+    T_gt = [np.eye(4, dtype=np.float32)]
+    for _ in range(1, n_kf):
+        xi = np.concatenate([rng.normal(size=3) * 0.1, rng.normal(size=3) * 0.03])
+        T_gt.append(lie.se3_exp(torch.from_numpy(xi.astype(np.float32))).numpy())
+    kf_uv = np.zeros((K, N, 2), np.float32)
+    kf_ur = np.full((K, N), -1.0, np.float32)
+    kf_mp = np.full((K, N), -1, np.int32)
+    kp_valid = np.zeros((K, N), bool)
+    for k in range(n_kf):
+        Xc = X @ T_gt[k][:3, :3].T + T_gt[k][:3, 3]
+        z = Xc[:, 2]
+        uv = np.stack([cam.fx * Xc[:, 0] / z + cam.cx, cam.fy * Xc[:, 1] / z + cam.cy], 1)
+        idx = np.flatnonzero(z > 0.2)[:N]
+        kf_uv[k, :len(idx)] = uv[idx]
+        kf_ur[k, :len(idx)] = uv[idx, 0] - cam.bf / z[idx]
+        kf_mp[k, :len(idx)] = idx
+        kp_valid[k, :len(idx)] = True
+    T_init = np.stack([np.eye(4, dtype=np.float32)] * K)
+    T_init[:n_kf] = np.stack(T_gt)
+    X_init = X + rng.normal(size=X.shape).astype(np.float32) * 0.01
+    t = torch.from_numpy
+    ms = M.init_map(K, P, N, ((8, 8),), device="cpu")._replace(
+        kf_valid=t(np.arange(K) < n_kf), kf_Tcw=t(T_init), kf_uv_und=t(kf_uv),
+        kf_uright=t(kf_ur), kf_mp=t(kf_mp), kf_kp_valid=t(kp_valid),
+        pt_valid=t(np.arange(P) < n_pt),
+        pt_pos=t(np.concatenate([X_init, np.zeros((P - n_pt, 3), np.float32)])))
+    cam_active = (np.arange(K) < n_kf) & (np.arange(K) > 0)
+    return cam, interop.map_state_to_numpy(ms), cam_active, np.arange(P) < n_pt
+
+
+def _dist_ring(Kp: int = 96, drift: float = 0.25):
+    """The dry run's loop-bearing ring of Kp keyframes (odometry chain,
+    covisibility and one loop edge; [7K, 7K] = [672, 672]) as numpy:
+    (S_est, valid, fixed, edges, T_gt, T_est)."""
+    from sdslam_tpu_torch.geometry import lie
+    from sdslam_tpu_torch.solvers import pose_graph as pg
+
+    rng = np.random.default_rng(11)
+    T_gt = []
+    for k in range(Kp):
+        th = 2 * np.pi * k / Kp
+        xi = np.array([np.sin(th), 0.1 * np.sin(2 * th), 1 - np.cos(th), 0, th, 0], np.float32)
+        T_gt.append(lie.se3_exp(torch.from_numpy(xi * 0.5)).numpy())
+    T_gt = np.stack(T_gt)
+    T_est = [T_gt[0]]
+    for k in range(1, Kp):
+        rel = T_gt[k] @ np.linalg.inv(T_gt[k - 1])
+        d = rng.normal(size=6).astype(np.float32) * drift / Kp
+        T_est.append(lie.se3_exp(torch.from_numpy(d)).numpy() @ rel @ T_est[-1])
+    T_est = np.stack(T_est)
+    covis = np.zeros((Kp, Kp), np.int32)
+    for k in range(1, Kp):
+        covis[k - 1, k] = covis[k, k - 1] = 150
+    t = torch.from_numpy
+    edges, _ = pg.make_edges_from_covisibility(
+        t(T_est), torch.ones(Kp, dtype=torch.bool), t(covis),
+        t(np.concatenate([[-1], np.arange(Kp - 1)]).astype(np.int32)),
+        loop_i=torch.tensor([Kp - 1]), loop_j=torch.tensor([0]),
+        loop_S=t((T_gt[Kp - 1] @ np.linalg.inv(T_gt[0]))[None]), covis_min=100, max_edges=512)
+    fixed = np.zeros(Kp, bool)
+    fixed[0] = True
+    return (T_est, np.ones(Kp, bool), fixed, tuple(e.numpy() for e in edges), T_gt, T_est)
+
+
+def _loop_gap(T_all, T_gt):
+    """Largest |log| of the first-to-last relative pose against the truth."""
+    from sdslam_tpu_torch.geometry import lie
+
+    rel = T_all[-1] @ np.linalg.inv(T_all[0])
+    rel_gt = T_gt[-1] @ np.linalg.inv(T_gt[0])
+    return float(np.abs(lie.se3_log(torch.from_numpy(rel @ np.linalg.inv(rel_gt))).numpy()).max())
+
+
+def _dist_align_pool(K: int = 64, N: int = 256):
+    """The dry run's pool of K textured stored pyramids (levels 2..4 of
+    640x480), every slot valid, as numpy for the ranks; the query is slot
+    DIST_QUERY's own pyramid."""
+    from sdslam_tpu_torch import interop
+    from sdslam_tpu_torch.mapping import map_state as M
+
+    shapes = ((120, 160), (60, 80), (30, 40))
+    rng = np.random.default_rng(5)
+    freqs = rng.uniform(0.01, 0.12, (K, 6, 2)).astype(np.float32)
+    phases = rng.uniform(0, 2 * np.pi, (K, 6)).astype(np.float32)
+
+    def tex_level(shape, lvl):
+        h, w = shape
+        s = 2.0 ** (lvl + 2)
+        v, u = np.meshgrid(np.arange(h) * s, np.arange(w) * s, indexing="ij")
+        imgs = np.zeros((K, h, w), np.float32)
+        for k in range(K):
+            ph = (u[None] * freqs[k, :, 0, None, None] + v[None] * freqs[k, :, 1, None, None]
+                  + phases[k, :, None, None])
+            imgs[k] = 128.0 + 100.0 * np.sin(ph).mean(0)
+        return imgs
+
+    pyr = tuple(tex_level(sh, i) for i, sh in enumerate(shapes))
+    uv = rng.uniform([24, 24], [616, 456], (K, N, 2)).astype(np.float32)
+    t = torch.from_numpy
+    ms = M.init_map(K, 512, N, shapes, device="cpu")._replace(
+        kf_valid=torch.ones(K, dtype=torch.bool), kf_uv=t(uv), kf_uv_und=t(uv),
+        kf_depth=torch.full((K, N), 2.0), kf_mp=torch.zeros((K, N), dtype=torch.int32),
+        kf_kp_valid=torch.ones((K, N), dtype=torch.bool), kf_pyramid=tuple(t(p) for p in pyr))
+    query = [np.zeros((2, 2), np.float32)] * 2 + [p[DIST_QUERY] for p in pyr]
+    return interop.map_state_to_numpy(ms), query
+
+
+DIST_QUERY = 37
+DIST_WORLDS = ((1, "nccl"), (4, "gloo"))  # NCCL refuses two ranks on one card
+
+
+def phase_dist(dev):
+    """The distributed solvers at the dry run's production shapes in ranks
+    spawned on the card: a world of one over NCCL, a world of four over
+    gloo on CUDA tensors. Each group runs, per solve, one warm-up call and
+    one measured call; returns the measured calls' launches, summed."""
+    from sdslam_tpu_torch.geometry import lie
+    from sdslam_tpu_torch.io.synthetic import make_dist_ba_problem
+    from sdslam_tpu_torch.parallel import dist_align, dist_ba, dist_pose_graph
+    from sdslam_tpu_torch.parallel import multihost as mh
+
+    cam = main_camera()
+    big = make_dist_ba_problem(np.random.default_rng(0), 64, 16384, 8, cam)
+    ring = _dist_ring()
+    pool, query = _dist_align_pool()
+    align_kw = dict(scale_factor=2.0, n_levels=5, store_min_level=2, iters=8)
+    small = _dist_small_ba(DIST_WORLDS[-1][0])
+    names = ("ba_k64", "ba_k8", "pgo_k96", "align_k64")
+    calls = [(dist_ba.rank_gn_steps, (cam, big, np.arange(64) > 0, 2)),
+             (dist_ba.rank_bundle_adjust, small + (1,)),
+             (dist_pose_graph.rank_pose_graph, ring[:4] + (8,)),
+             (dist_align.rank_align_scan, (cam, pool, query, align_kw))]
+    runs, out = {}, {"backends": {}}
+    for world, backend in DIST_WORLDS:
+        t0 = time.perf_counter()
+        # every solve twice: a warm-up call, then the measured one
+        ranks = mh.launch(mh.run_calls, world, args=(calls + calls,), backend=backend,
+                          devices=str(dev), threads=2, timeout=400.0)
+        ranks = [r[len(calls):] for r in ranks]
+        out["backends"][world] = backend
+        out[f"world{world}_seconds"] = time.perf_counter() - t0
+        # a replicated result must be the same bits on every rank
+        for r in ranks[1:]:
+            for a, b in zip(ranks[0], r):
+                for k, v in a.items():
+                    if isinstance(v, np.ndarray) and not np.array_equal(v, b[k]):
+                        raise AssertionError(f"dist world {world}: ranks differ in {k}")
+        runs[world] = ranks
+        print(f"dist: world {world} on {backend}, {str(dev)}", flush=True)
+    (w1, _), (wn, _) = DIST_WORLDS
+    one, many = runs[w1][0], runs[wn][0]
+    for i, name in enumerate(names):
+        out[f"{name}_ms"] = {w: max(r[i]["ms"] for r in runs[w]) for w in runs}
+    out["dT"] = float(np.abs(one[0]["T"] - many[0]["T"]).max())
+    out["dX"] = float(np.abs(one[0]["X"] - many[0]["X"]).max())
+    out["dT_k8"] = float(np.abs(one[1]["kf_Tcw"] - many[1]["kf_Tcw"]).max())
+    out["dX_k8"] = float(np.abs(one[1]["pt_pos"] - many[1]["pt_pos"]).max())
+    out["ba_k64_pose_err_before"] = float(np.abs(big[0] - big[7]).max())
+    out["ba_k64_pose_err_after"] = float(np.abs(many[0]["T"] - big[7]).max())
+    out["dS"] = float(np.abs(one[2]["S"] - many[2]["S"]).max())
+    T_opt = lie.sim3_to_se3(torch.from_numpy(many[2]["S"])).numpy()
+    out["gap_before"], out["gap_after"] = _loop_gap(ring[5], ring[4]), _loop_gap(T_opt, ring[4])
+    e1, en = one[3]["errors"], many[3]["errors"]
+    both = np.isfinite(e1) & np.isfinite(en)
+    out["dA"] = float(np.abs(np.where(both, e1 - en, 0.0)).max())
+    out["align_finite_equal"] = bool((np.isfinite(e1) == np.isfinite(en)).all())
+    out["align_winner"], out["align_winner_error"] = int(np.argmin(en)), float(en[DIST_QUERY])
+    launches = {k: sum(c["launches"][k] for w in runs for r in runs[w] for c in r)
+                for k in one[0]["launches"]}
+    launches = read_launches("dist", launches)
+    emit("dist", launches=launches, **out)
+    if not (out["dT"] < 5e-4 and out["dX"] < 5e-3 and out["dT_k8"] < 5e-4
+            and out["dX_k8"] < 5e-3):
+        raise AssertionError(f"dist-BA shard-count variance: {out}")
+    if not out["ba_k64_pose_err_after"] < out["ba_k64_pose_err_before"]:
+        raise AssertionError("dist-BA did not move the poses toward the truth")
+    if not (out["dS"] < 5e-4 and out["gap_after"] < 0.02
+            and out["gap_after"] < 0.5 * out["gap_before"]):
+        raise AssertionError(f"dist-PGO: dS {out['dS']:.2e}, loop gap "
+                             f"{out['gap_before']:.3f} -> {out['gap_after']:.3f}")
+    if not (out["dA"] < 1e-5 and out["align_finite_equal"] and out["align_winner"] == DIST_QUERY
+            and out["align_winner_error"] < 1e-3):
+        raise AssertionError(f"dist-align: dA {out['dA']:.2e}, winner {out['align_winner']} "
+                             f"error {out['align_winner_error']:.4f}")
+    return launches
+
+
+def phase_pipelined(dev, n_frames: int = 60):
+    """Phase 4's orbit through PipelinedRGBDTracker: tracking on the
+    card's current stream, every keyframe's mapping pass on a second
+    stream issued from the worker thread; returns {kernel: launches}."""
+    from sdslam_tpu_torch.io import synthetic
+    from sdslam_tpu_torch.parallel.pipelined import PipelinedRGBDTracker
+    from sdslam_tpu_torch.utils import metrics
+
+    cfg = main_config()
+    seq = synthetic.SyntheticSequence(cfg.camera, n_frames=n_frames, trajectory="orbit",
+                                      radius=0.06, yaw_amp=0.04, device=dev)
+    frames = sensor_frames(seq, range(n_frames))
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    tracker = PipelinedRGBDTracker(cfg, device=dev)
+    if tracker.map_stream is None or tracker.map_stream == torch.cuda.current_stream(dev):
+        raise AssertionError("the mapping pass has no stream of its own")
+    t0 = time.perf_counter()
+    for img, dep, ts in frames:
+        tracker.track(img, dep, ts)
+    tracker.flush()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches("pipelined")
+    est = np.stack([np.asarray(p) for p in tracker.trajectory])
+    gt = seq.poses.numpy()
+    ate = metrics.ate_rmse(est, gt, align=False)
+    n_kf = int(tracker.ms.kf_valid.sum())
+    on_device = all(t.device == tracker.track_device for v in tracker.ms
+                    for t in (v if isinstance(v, tuple) else (v,)))
+    ft = tracker.frame_ms["track"]
+    main = EMITTED.get("main", {})
+    emit("pipelined", frames=n_frames, status=tracker.st.status, ate_cm=ate * 100.0,
+         keyframes=n_kf, points=int(tracker.ms.pt_valid.sum()), wall_fps=n_frames / wall,
+         median_frame_ms=statistics.median(ft),
+         main_wall_fps=main.get("wall_fps"), main_median_track_ms=main.get("median_track_ms"),
+         main_median_kf_ms=main.get("median_kf_ms"), kf_dispatched=tracker.kf_dispatched,
+         kf_skipped=tracker.kf_skipped, kf_events=tracker.kf_events,
+         tracking_thread_syncs_per_frame=tracker.host_syncs / n_frames,
+         map_thread_syncs=tracker.map_syncs, map_device=str(tracker.map_device),
+         snapshot_on_tracking_device=on_device,
+         max_memory_allocated_mb=torch.cuda.max_memory_allocated() / 2**20, launches=launches)
+    if tracker.st.status != "OK":
+        raise AssertionError(f"pipelined tracker status {tracker.st.status}")
+    if not np.all(np.isfinite(est)) or est.shape != gt.shape:
+        raise AssertionError("pipelined trajectory not finite or of the wrong shape")
+    if not ate < 0.02:
+        raise AssertionError(f"pipelined ATE {ate * 100:.3f} cm >= 2 cm")
+    if n_kf < 2:
+        raise AssertionError(f"pipelined: only {n_kf} keyframes")
+    if not on_device:
+        raise AssertionError("the tracking snapshot left the tracking device")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the card")
@@ -1611,7 +1890,8 @@ def main():
     seconds["kernels"] = time.perf_counter() - t0
     by_path = {}
     for name, fn in (("main", phase_main), ("reloc", phase_reloc), ("loop", phase_loop),
-                     ("mono", phase_mono), ("fusion", phase_fusion), ("io", phase_io)):
+                     ("mono", phase_mono), ("fusion", phase_fusion), ("io", phase_io),
+                     ("dist", phase_dist), ("pipelined", phase_pipelined)):
         t0 = time.perf_counter()
         by_path[name] = fn(dev)
         seconds[name] = time.perf_counter() - t0

@@ -176,6 +176,56 @@ def forward_trajectory(n_frames: int, step: float = 0.02, yaw_rate: float = 0.0)
     return torch.as_tensor(np.stack(poses))
 
 
+def make_dist_ba_problem(rng, K, P, Mo, cam, noise_px: float = 0.01):
+    """Production-shaped synthetic BA problem as flat numpy arrays, for the
+    distributed-BA checks: K keyframes, P points, E = P*Mo stereo
+    observations with per-camera keypoint tables. The draws from `rng`
+    follow make_dist_ba_problem of sdslam_tpu/io/synthetic.py exactly.
+
+    Returns (T0 [K,4,4] perturbed initial poses, X0 [P,3] perturbed points,
+    obs_kf [P,Mo] (-1 = dropped), obs_kp [P,Mo], kf_uv [K,N,2],
+    kf_ur [K,N], kf_oct [K,N], T_gt, X_gt)."""
+    pts = rng.uniform([-3, -2, 1], [3, 2, 8], (P, 3)).astype(np.float32)
+    kf_T = np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))
+    kf_T[:, :3, 3] = rng.uniform(-0.8, 0.8, (K, 3)).astype(np.float32)
+    obs_cam = rng.integers(0, K, (P, Mo)).astype(np.int32)
+    Tpm = kf_T[obs_cam]
+    Xc = np.einsum("pmij,pj->pmi", Tpm[..., :3, :3], pts) + Tpm[..., :3, 3]
+    u = cam.fx * Xc[..., 0] / Xc[..., 2] + cam.cx
+    v = cam.fy * Xc[..., 1] / Xc[..., 2] + cam.cy
+    ur = u - cam.bf / Xc[..., 2]
+
+    # per-camera keypoint slots: the rank of each observation among its
+    # camera's observations (a vectorized cumcount by camera)
+    N = Mo * (P // K + 2)
+    flat_c = obs_cam.ravel()
+    order = np.argsort(flat_c, kind="stable")
+    sc = flat_c[order]
+    first = np.r_[True, sc[1:] != sc[:-1]]
+    grp = np.cumsum(first) - 1
+    starts = np.flatnonzero(first)
+    rank = np.arange(sc.size) - starts[grp]
+    kp = np.empty(sc.size, np.int64)
+    kp[order] = rank
+    keep = kp < N
+    obs_kp = np.where(keep, kp, 0).reshape(P, Mo).astype(np.int32)
+    obs_kf = np.where(keep.reshape(P, Mo), obs_cam, -1).astype(np.int32)
+
+    kf_uv = np.zeros((K, N, 2), np.float32)
+    kf_ur = np.full((K, N), -1.0, np.float32)
+    kf_oct = np.zeros((K, N), np.int32)
+    uv_flat = np.stack([u.ravel(), v.ravel()], -1).astype(np.float32)
+    uv_flat += rng.normal(0, noise_px, uv_flat.shape).astype(np.float32)
+    sel = np.flatnonzero(keep)
+    kf_uv[flat_c[sel], kp[sel]] = uv_flat[sel]
+    kf_ur[flat_c[sel], kp[sel]] = ur.ravel()[sel]
+
+    T0 = kf_T.copy()
+    T0[1:, :3, 3] += rng.normal(0, 0.01, (K - 1, 3)).astype(np.float32)
+    X0 = pts + rng.normal(0, 0.02, (P, 3)).astype(np.float32)
+    return T0, X0, obs_kf, obs_kp, kf_uv, kf_ur, kf_oct, kf_T, pts
+
+
 class SyntheticSequence:
     """Dataset-like iterable of (timestamp, image, depth) with GT poses;
     frames are rendered on `device`."""

@@ -28,7 +28,7 @@ import torch
 
 from sdslam_tpu_torch import _device
 from sdslam_tpu_torch.geometry import lie
-from sdslam_tpu_torch.kernels import _build
+from sdslam_tpu_torch.kernels import _build, count_launch
 from sdslam_tpu_torch.kernels import align_kernel as ak
 from sdslam_tpu_torch.ops import sample
 
@@ -70,8 +70,7 @@ def accumulate_gn(img, Xc, ref_patch, J, okpx, fx: float, fy: float, cx: float, 
             okpx.data_ptr(), B, N, float(fx), float(fy), float(cx), float(cy), out.data_ptr(),
             _device.stream_ptr(img))
     _build.check(rc, "sd_accumulate_gn")
-    global LAUNCHES
-    LAUNCHES += 1
+    count_launch(__name__)
     return _views(out, B)
 
 
@@ -162,8 +161,7 @@ def _launch_level(img, X_ref, ref_patch, J, okpx, L, T_init,
             okpx.data_ptr(), B, N, L.data_ptr(), T_init.data_ptr(), float(fx), float(fy),
             float(cx), float(cy), int(iters), out.data_ptr(), _device.stream_ptr(img))
     _build.check(rc, "sd_align_batched")
-    global LEVEL_LAUNCHES
-    LEVEL_LAUNCHES += 1
+    count_launch(__name__, "LEVEL_LAUNCHES")
     return out
 
 

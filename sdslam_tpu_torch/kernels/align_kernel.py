@@ -20,7 +20,7 @@ import torch
 
 from sdslam_tpu_torch import _device
 from sdslam_tpu_torch.geometry import lie
-from sdslam_tpu_torch.kernels import _build
+from sdslam_tpu_torch.kernels import _build, count_launch
 from sdslam_tpu_torch.ops import sample
 
 LAUNCHES = 0
@@ -156,6 +156,5 @@ def _launch(img, X_ref, ref_patch, J, okpx, Hinv, T_init,
             float(fx), float(fy), float(cx), float(cy), int(iters), out.data_ptr(),
             _device.stream_ptr(img))
     _build.check(rc, "sd_align_level")
-    global LAUNCHES
-    LAUNCHES += 1
+    count_launch(__name__)
     return out

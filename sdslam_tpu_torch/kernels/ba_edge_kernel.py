@@ -27,7 +27,7 @@ import ctypes
 import torch
 
 from sdslam_tpu_torch import _device
-from sdslam_tpu_torch.kernels import _build
+from sdslam_tpu_torch.kernels import _build, count_launch
 from sdslam_tpu_torch.solvers.ba_const import HUBER_MONO, HUBER_STEREO
 
 LAUNCHES = 0
@@ -107,6 +107,5 @@ def ba_edge_terms(packed, fx: float, fy: float, cx: float, cy: float, bf: float,
     rc = fn(packed.data_ptr(), E, float(fx), float(fy), float(cx), float(cy), float(bf),
             int(use_huber), out.data_ptr(), _device.stream_ptr(packed))
     _build.check(rc, "sd_ba_edge_terms")
-    global LAUNCHES
-    LAUNCHES += 1
+    count_launch(__name__)
     return out

@@ -31,7 +31,7 @@ import torch
 
 from sdslam_tpu_torch import _device
 from sdslam_tpu_torch._util import as_device
-from sdslam_tpu_torch.kernels import _build
+from sdslam_tpu_torch.kernels import _build, count_launch
 from sdslam_tpu_torch.solvers.ba_const import HUBER_MONO, HUBER_STEREO
 
 LAUNCHES = 0
@@ -171,6 +171,5 @@ def ba_edge_schur(packed, lm_lambda, fx: float, fy: float, cx: float, cy: float,
             float(cy), float(bf), int(use_huber), int(K), int(emit_zt), edge.data_ptr(),
             rows.data_ptr(), zt.data_ptr(), _device.stream_ptr(packed))
     _build.check(rc, "sd_ba_edge_schur")
-    global LAUNCHES
-    LAUNCHES += 1
+    count_launch(__name__)
     return edge, rows, (zt if emit_zt else None)

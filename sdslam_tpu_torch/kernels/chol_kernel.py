@@ -22,7 +22,7 @@ import ctypes
 import torch
 
 from sdslam_tpu_torch import _device
-from sdslam_tpu_torch.kernels import _build
+from sdslam_tpu_torch.kernels import _build, count_launch
 
 LAUNCHES = 0
 N_MAX = 232
@@ -50,7 +50,6 @@ def chol_solve_dense(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     fn = _build.bind("chol_solve", "sd_chol_solve", [vp, vp, vp, ctypes.c_int, vp])
     rc = fn(S.data_ptr(), b.data_ptr(), x.data_ptr(), N, _device.stream_ptr(S))
     _build.check(rc, "sd_chol_solve")
-    global LAUNCHES
-    LAUNCHES += 1
+    count_launch(__name__)
     return x
 

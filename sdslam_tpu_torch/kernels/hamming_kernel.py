@@ -19,7 +19,7 @@ import ctypes
 import torch
 
 from sdslam_tpu_torch import _device
-from sdslam_tpu_torch.kernels import _build
+from sdslam_tpu_torch.kernels import _build, count_launch
 
 LAUNCHES = 0
 BEST2_LAUNCHES = 0
@@ -61,8 +61,7 @@ def hamming_matrix(da: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     )
     rc = fn(da.data_ptr(), db.data_ptr(), out.data_ptr(), na, nb, _device.stream_ptr(da))
     _build.check(rc, "sd_hamming")
-    global LAUNCHES
-    LAUNCHES += 1
+    count_launch(__name__)
     return out
 
 
@@ -110,7 +109,6 @@ def hamming_masked_best2(da: torch.Tensor, db: torch.Tensor, mask: torch.Tensor)
     rc = fn(da.data_ptr(), db.data_ptr(), mask.data_ptr(), out.data_ptr(), na, nb,
             _device.stream_ptr(da))
     _build.check(rc, "sd_hamming_masked_best2")
-    global BEST2_LAUNCHES
-    BEST2_LAUNCHES += 1
+    count_launch(__name__, "BEST2_LAUNCHES")
     # one buffer: d1 [na] int32, d2 [na] int32, then j1 [na] int64
     return out[:na], out[2 * na:].view(torch.int64), out[na:2 * na]

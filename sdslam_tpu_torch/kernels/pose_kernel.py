@@ -16,7 +16,7 @@ import torch
 
 from sdslam_tpu_torch import _device
 from sdslam_tpu_torch.geometry import lie
-from sdslam_tpu_torch.kernels import _build
+from sdslam_tpu_torch.kernels import _build, count_launch
 from sdslam_tpu_torch.solvers.ba_const import CHI2_MONO, CHI2_STEREO, HUBER_MONO, HUBER_STEREO
 
 LAUNCHES = 0
@@ -144,6 +144,5 @@ def _launch(edata, T_init, T_prior_inv, prior_info, fx: float, fy: float, cx: fl
             int(has_prior), float(fx), float(fy), float(cx), float(cy), float(bf), int(rounds),
             int(iters), out.data_ptr(), _device.stream_ptr(edata))
     _build.check(rc, "sd_pose_gn")
-    global LAUNCHES
-    LAUNCHES += 1
+    count_launch(__name__)
     return out

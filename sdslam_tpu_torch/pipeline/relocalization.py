@@ -45,16 +45,16 @@ def pool_alignment_inputs(cam: CameraModel, ms: M.MapState):
 
 
 def align_pool(cam: CameraModel, ms: M.MapState, cur_pyr, max_level: int, min_level: int,
-               scale_factor: float, store_min_level: int):
+               scale_factor: float, store_min_level: int, iters: int = 15):
     """Coarse alignment of every keyframe slot against one current pyramid
-    (seeded at identity: the keyframe's own pose). Returns (T_rel [K,4,4],
-    errors [K]); slots with < 50 valid pixels get inf (a vacuous 0/0 error
-    must rank last, not first)."""
+    (seeded at identity: the keyframe's own pose), `iters` GN iterations
+    per level. Returns (T_rel [K,4,4], errors [K]); slots with < 50 valid
+    pixels get inf (a vacuous 0/0 error must rank last, not first)."""
     uv, X_ref, valid = pool_alignment_inputs(cam, ms)
     res = image_align.align_batched(
         ms.kf_pyramid, cur_pyr, uv, X_ref, valid, torch.eye(4, device=ms.device),
         cam.fx, cam.fy, cam.cx, cam.cy, scale_factor=scale_factor, max_level=max_level,
-        min_level=min_level, iters=15, start_level=store_min_level,
+        min_level=min_level, iters=iters, start_level=store_min_level,
     )
     err = torch.where(res.n_meas >= 50, res.error, torch.full_like(res.error, float("inf")))
     return res.T_cur_ref, err

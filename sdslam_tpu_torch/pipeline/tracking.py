@@ -250,6 +250,22 @@ PACK_N_PTS = 22
 PACK_LEN = 23
 
 
+class KeyframeOutcome(NamedTuple):
+    """What a tracking step's keyframe hook (`RGBDTracker._keyframe`)
+    hands back: the map and the pose after it, the decision as the step
+    reports it to the caller, the device state's keyframe fields, and the
+    two packed values (decision, slot) of the frame's result."""
+
+    ms: M.MapState
+    Tcw: torch.Tensor
+    need_kf: bool  # a mapping pass ran inline in this step
+    last_kf_slot: torch.Tensor
+    frames_since_kf: torch.Tensor
+    ref_kf_inliers: torch.Tensor
+    pack_need_kf: torch.Tensor  # f32 0-d
+    pack_slot: torch.Tensor  # f32 0-d
+
+
 @dataclasses.dataclass
 class TrackerState:
     status: str = "NOT_INITIALIZED"
@@ -386,31 +402,18 @@ class RGBDTracker:
         decayed = n_inl.to(torch.float32) < 0.9 * dst.ref_kf_inliers.to(torch.float32)
         need_kf_d = (track_ok & (n_inl >= 20) & (~ms.kf_valid).any() & (fskf >= 2)
                      & (decayed | (fskf >= kf_interval)))
-        need_kf = self.mapping_enabled and self._sync(need_kf_d)
-        if need_kf:
-            close = self.close_depth if np.isfinite(self.close_depth) else 1e9
-            ms, slot, _, Tcw_fin = _kf_core(
-                cam, ms, out.Tcw, feats.uv, feats.uv_und, feats.octave, feats.angle, feats.desc,
-                feats.valid, d, uright, out.assoc, tuple(pyramid[KF_STORE_MIN_LEVEL:]),
-                dst.frame_id, ts, dst.last_kf_slot,
-                torch.full((), close, device=self.device),
-                scale_factor=sf, n_levels=nl, covis_min=cfg.map.covis_min_weight,
-                ba_schedule=tuple(cfg.tracking.ba_schedule), sync=self._sync,
-            )
-            slot = slot.to(torch.int32)
-        else:
-            slot, Tcw_fin = dst.last_kf_slot, out.Tcw
+        kf = self._keyframe(ms, need_kf_d, n_inl, out, feats, pyramid, d, uright, ts)
+        ms, Tcw_fin = kf.ms, kf.Tcw
         T_report = torch.where(track_ok, Tcw_fin, ekf.last_pose)
         ekf = sensors.ekf_update(ekf, Tcw_fin, dt, track_ok)
         if self._imu_active and use_imu:
             imu_s = sensors.imu_update(imu_s, Tcw_fin, gyro, accel, dt, track_ok)
-        i32 = torch.int32
         self.dst = DeviceState(
             ekf=ekf,
             imu=imu_s,
-            last_kf_slot=slot if need_kf else dst.last_kf_slot,
-            frames_since_kf=torch.zeros_like(fskf) if need_kf else fskf + 1,
-            ref_kf_inliers=n_inl.to(i32) if need_kf else dst.ref_kf_inliers,
+            last_kf_slot=kf.last_kf_slot,
+            frames_since_kf=kf.frames_since_kf,
+            ref_kf_inliers=kf.ref_kf_inliers,
             frame_id=dst.frame_id + 1,
             last_ts=ts,
         )
@@ -418,10 +421,34 @@ class RGBDTracker:
         f32 = torch.float32
         packed = torch.cat([T_report.reshape(16), torch.stack([
             n_inl.to(f32), out.n_matches.to(f32), out.align_error.to(f32),
-            torch.full((), float(need_kf), device=self.device), slot.to(f32),
+            kf.pack_need_kf, kf.pack_slot,
             ms.kf_valid.sum().to(f32), ms.pt_valid.sum().to(f32),
         ])])
-        return packed, T_report, need_kf, Frame(feats, tuple(pyramid), d, uright, T_report)
+        return packed, T_report, kf.need_kf, Frame(feats, tuple(pyramid), d, uright, T_report)
+
+    def _keyframe(self, ms, need_kf_d, n_inl, out, feats, pyramid, d, uright,
+                  ts) -> KeyframeOutcome:
+        """The keyframe decision (one counted sync) and, on a keyframe, the
+        whole mapping pass inline."""
+        dst, f32 = self.dst, torch.float32
+        if not (self.mapping_enabled and self._sync(need_kf_d)):
+            return KeyframeOutcome(ms, out.Tcw, False, dst.last_kf_slot, dst.frames_since_kf + 1,
+                                   dst.ref_kf_inliers, torch.zeros((), device=self.device),
+                                   dst.last_kf_slot.to(f32))
+        cfg = self.cfg
+        close = self.close_depth if np.isfinite(self.close_depth) else 1e9
+        ms, slot, _, Tcw_fin = _kf_core(
+            self.cam, ms, out.Tcw, feats.uv, feats.uv_und, feats.octave, feats.angle, feats.desc,
+            feats.valid, d, uright, out.assoc, tuple(pyramid[KF_STORE_MIN_LEVEL:]),
+            dst.frame_id, ts, dst.last_kf_slot, torch.full((), close, device=self.device),
+            scale_factor=cfg.orb.scale_factor, n_levels=cfg.orb.n_levels,
+            covis_min=cfg.map.covis_min_weight, ba_schedule=tuple(cfg.tracking.ba_schedule),
+            sync=self._sync,
+        )
+        slot = slot.to(torch.int32)
+        return KeyframeOutcome(ms, Tcw_fin, True, slot, torch.zeros_like(dst.frames_since_kf),
+                               n_inl.to(torch.int32), torch.ones((), device=self.device),
+                               slot.to(f32))
 
     def _step_packed(self, buf, th_radius: float):
         """Unpack one u8 upload [H + H//2 + 1, W] (image, decimated u16
@@ -708,8 +735,8 @@ class MonoTracker(RGBDTracker):
     def __init__(self, cfg: SystemConfig, device="cuda"):
         if cfg.tracking.use_pattern:
             raise NotImplementedError(
-                "monocular chessboard initialization (use_pattern) is not ported: it waits "
-                "for a pattern detector without OpenCV (ROADMAP.md, M13)")
+                "monocular chessboard initialization (use_pattern) is not ported yet: it is "
+                "the last slice of ROADMAP.md's queue (M13)")
         super().__init__(cfg, device=device)
         self._init_frame: Optional[Frame] = None
         self._init_ts = 0.0
