@@ -50,10 +50,23 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
               the current stream, each keyframe's mapping pass on a second
               stream from a worker thread; ATE, keyframes, and the
               tracking snapshot on the tracking device
+ 12. pattern  the monocular SDSlamSystem with chessboard initialization
+              (UsePattern) and loop closing on the poster scene (the room
+              texture on a poster at 0.5 m with a 6x4, 28.3 mm board): a
+              metric map at frame 0 (median depth within 0.15 m of 0.5 m),
+              SE(3)-aligned ATE over 30 frames, the path length against the
+              truth (reported); an attempt on a frame without a board; then
+              the CLI's `calibration` on six rendered board views
+ 13. viewer   the RGB-D SDSlamSystem on a 40-frame orbit with a LiveViewer
+              that a client thread drives over HTTP (renders, an AR plane,
+              localization on and off, stop and save) while another polls
+              it; apply_pending must make no blocking call; then an RGBDNode
+              over the same facade, the CLI with --viewer-port, and one
+              V4L2 frame where /dev/video0 exists
 Then the kernel table as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Launch counters are set to 0 before each of
-phases 4-11 and read after it (phase 10's ranks count their own measured
-calls and return the counts).
+phases 4-13 and read after it (phase 10's ranks count their own measured
+calls and return the counts). Phases 12 and 13 must take 60 s or less.
 
 It imports nothing from JAX or the JAX package and never runs on the CPU.
 """
@@ -967,6 +980,12 @@ PATH_KERNELS = {
     # batched level; dist-PGO runs no kernel (the JAX package's neither)
     "dist": ("ba_schur", "align_batched", "chol_solve"),
     "pipelined": ("align_level", "pose_gn", "ba_schur", "hamming_best2", "chol_solve"),
+    # the monocular path after a chessboard initialization, loop closing on
+    "pattern": ("align_level", "pose_gn", "ba_schur", "hamming_best2", "align_batched",
+                "chol_solve"),
+    # the RGB-D facade closes loops: loop detection runs K5's batched level
+    "viewer": ("align_level", "pose_gn", "ba_schur", "hamming_best2", "align_batched",
+               "chol_solve"),
 }
 
 
@@ -1861,6 +1880,415 @@ def phase_pipelined(dev, n_frames: int = 60):
         raise AssertionError("the tracking snapshot left the tracking device")
     return launches
 
+def path_length(T) -> float:
+    """Length of the camera-centre path of world->camera poses [N,4,4]."""
+    from sdslam_tpu_torch.utils import metrics
+
+    return float(np.linalg.norm(np.diff(metrics.camera_centers(T), axis=0), axis=1).sum())
+
+
+def calibration_views(dev, cell: float = 0.0302):
+    """Six u8 views of a board of `cell` m squares on the poster, turned and
+    moved back as tests/test_pattern.py's calibration round trip does."""
+    from sdslam_tpu_torch.io import synthetic
+
+    return [synthetic.PosterSequence(main_camera(), np.eye(4, dtype=np.float32)[None],
+                                     z=0.5 + 0.08 * i, tilt=(0.25 + 0.12 * i, -0.25 + 0.12 * i, 0.0),
+                                     cell=cell, device=dev).frame(0)[1] for i in range(6)]
+
+
+def phase_pattern(dev, n_frames: int = 30):
+    """The monocular SDSlamSystem with chessboard initialization (UsePattern)
+    and loop closing at the main configuration on the poster scene: the
+    board at 0.5 m in frame 0 gives a metric map, which the next frames
+    track. Then the CLI's `calibration` on six rendered board views.
+    Returns {kernel: launches}."""
+    import contextlib
+    import dataclasses
+    import io
+    import os
+    import re
+    import tempfile
+
+    from PIL import Image
+
+    from sdslam_tpu_torch import cli
+    from sdslam_tpu_torch.io import synthetic
+    from sdslam_tpu_torch.system import MONOCULAR, SDSlamSystem
+    from sdslam_tpu_torch.utils import metrics
+
+    base = main_config()
+    cfg = dataclasses.replace(base, tracking=dataclasses.replace(base.tracking, use_pattern=True))
+    seq = synthetic.PosterSequence(cfg.camera, synthetic.poster_trajectory(n_frames), device=dev)
+    frames = [seq.frame(i) for i in range(n_frames)]
+    gt = seq.poses.numpy()
+    out = {}
+
+    # an attempt without a board (a frame of phase 4's room): no map yet
+    room = synthetic.SyntheticSequence(cfg.camera, n_frames=2, device=dev).frame(0)[1]
+    room = room.cpu().numpy().astype(np.uint8)
+    probe = SDSlamSystem(cfg, sensor=MONOCULAR, device=dev)
+    no_board = []
+    for k in range(2):
+        t0 = time.perf_counter()
+        probe.track_monocular(room, k / 30.0)
+        torch.cuda.synchronize()
+        no_board.append((time.perf_counter() - t0) * 1e3)
+    out["attempt_ms_no_board"] = no_board
+    if probe.tracker.st.status != "NOT_INITIALIZED":
+        raise AssertionError("pattern: a frame without a board initialized a map")
+
+    reset_launches()
+    sysm = SDSlamSystem(cfg, sensor=MONOCULAR, loop_closing=True, device=dev)
+    tr = sysm.tracker
+    t_all = time.perf_counter()
+    with SyncCounter() as syncs:
+        ts, img = frames[0]
+        t0 = time.perf_counter()
+        sysm.track_monocular(img, ts)
+        torch.cuda.synchronize()
+        out["init_ms"] = (time.perf_counter() - t0) * 1e3
+    out["init_status"] = tr.st.status
+    out["init_host_reads"] = tr.host_syncs
+    out["init_host_syncs"] = syncs.n
+    valid = tr.ms.pt_valid
+    out["init_points"] = int(valid.sum())
+    out["init_median_depth_m"] = float(tr.ms.pt_pos[valid][:, 2].median()) if out["init_points"] else None
+    for ts, img in frames[1:]:
+        sysm.track_monocular(img, ts)
+    sysm.finish()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_all
+    est = np.stack([np.asarray(p) for p in tr.trajectory])
+    out["status"] = sysm.get_tracking_state()
+    out["se3_ate_cm"] = metrics.ate_rmse(est, gt, align=True, with_scale=False) * 100.0
+    out["sim3_scale"] = float(metrics.umeyama(metrics.camera_centers(est),
+                                              metrics.camera_centers(gt), True)[0])
+    out["path_length_m"] = {"tracked": path_length(est), "truth": path_length(gt)}
+    out["path_length_ratio"] = out["path_length_m"]["tracked"] / out["path_length_m"]["truth"]
+    ft = tr.frame_ms
+    out.update(keyframes=int(tr.ms.kf_valid.sum()), points=int(tr.ms.pt_valid.sum()),
+               wall_fps=n_frames / wall,
+               median_track_ms=statistics.median(ft["track"]) if ft["track"] else None,
+               median_kf_ms=statistics.median(ft["kf"]) if ft["kf"] else None,
+               detections=sum("detected" in i for i in sysm.loop_infos))
+    launches = read_launches("pattern")
+
+    # the calibration CLI on six board views written as PNGs
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, v in enumerate(calibration_views(dev)):
+            Image.fromarray(v).save(os.path.join(tmp, f"view{i}.png"))
+        yaml_path = os.path.join(tmp, "calibration.yaml")
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            cli.main(["calibration", tmp, "--out", yaml_path])
+        out["calibration_ms"] = (time.perf_counter() - t0) * 1e3
+        text = open(yaml_path).read()
+    rms = float(re.search(r"reprojection RMS ([0-9.]+)", log.getvalue()).group(1))
+    fx = float(re.search(r"Camera\.fx: ([0-9.]+)", text).group(1))
+    out["calibration"] = {"rms_px": rms, "fx": fx, "fx_rel_err": abs(fx - cfg.camera.fx) / cfg.camera.fx}
+    emit("pattern", frames=n_frames, launches=launches, **out)
+
+    if out["init_status"] != "OK":
+        raise AssertionError(f"pattern: status {out['init_status']} after frame 0")
+    if out["init_points"] < 20:
+        raise AssertionError(f"pattern: {out['init_points']} metric points from the board")
+    if not abs(out["init_median_depth_m"] - 0.5) < 0.15:
+        raise AssertionError(f"pattern: median point depth {out['init_median_depth_m']:.3f} m")
+    if not np.all(np.isfinite(est)) or est.shape != gt.shape:
+        raise AssertionError("pattern: trajectory not finite or of the wrong shape")
+    if not out["se3_ate_cm"] < 2.0:
+        raise AssertionError(f"pattern: SE(3) ATE {out['se3_ate_cm']:.3f} cm >= 2 cm")
+    if not (rms < 1.0 and out["calibration"]["fx_rel_err"] < 0.12):
+        raise AssertionError(f"pattern: calibration {out['calibration']}")
+    return launches
+
+
+class BlockingCallCounter:
+    """Counts the calls that wait for the card (Tensor.item / cpu / tolist /
+    numpy / bool / int / float on a CUDA tensor, and the synchronize calls)
+    made on the calling thread while `active` is set."""
+
+    NAMES = ("item", "cpu", "tolist", "numpy", "__bool__", "__int__", "__float__")
+
+    def __init__(self):
+        import threading
+
+        self.count = 0
+        self.local = threading.local()
+        self._saved = []
+
+    def _wrap(self, owner, name, on_cuda):
+        orig = getattr(owner, name)
+        counter = self
+
+        def wrapped(*a, **k):
+            if getattr(counter.local, "active", False) and on_cuda(a):
+                counter.count += 1
+            return orig(*a, **k)
+
+        self._saved.append((owner, name, orig))
+        setattr(owner, name, wrapped)
+
+    def __enter__(self):
+        for name in self.NAMES:
+            self._wrap(torch.Tensor, name, lambda a: a[0].is_cuda)
+        self._wrap(torch.cuda, "synchronize", lambda a: True)
+        self._wrap(torch.cuda.Event, "synchronize", lambda a: True)
+        self._wrap(torch.cuda.Stream, "synchronize", lambda a: True)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._saved):
+            setattr(owner, name, orig)
+
+    def watch(self, fn):
+        """fn, counted while it runs on this thread."""
+        def run(*a, **k):
+            self.local.active = True
+            try:
+                return fn(*a, **k)
+            finally:
+                self.local.active = False
+        return run
+
+
+class FakeRospy:
+    """A rospy-compatible transport that records subscriptions and
+    publications (no ROS install)."""
+
+    class _Pub:
+        def __init__(self):
+            self.msgs = []
+
+        def publish(self, m):
+            self.msgs.append(m)
+
+    def __init__(self):
+        self.subs, self.pubs = {}, {}
+
+    def Subscriber(self, topic, _type, cb, queue_size=10):
+        self.subs[topic] = cb
+
+    def Publisher(self, topic, _type, queue_size=10):
+        self.pubs[topic] = FakeRospy._Pub()
+        return self.pubs[topic]
+
+    def spin(self):
+        pass
+
+
+def ros_image(stamp: float, arr: np.ndarray, encoding: str):
+    """A sensor_msgs/Image-like message (little endian, packed rows)."""
+    import types
+
+    header = types.SimpleNamespace(stamp=types.SimpleNamespace(to_sec=lambda: stamp))
+    data = np.ascontiguousarray(arr).tobytes()
+    return types.SimpleNamespace(header=header, height=arr.shape[0], width=arr.shape[1],
+                                 encoding=encoding, is_bigendian=False, data=data,
+                                 step=len(data) // arr.shape[0])
+
+
+VIEWER_SCRIPT = {  # frame after which the client acts -> its requests
+    10: ["GET", "POST /plane/add"],
+    20: ["GET", "POST /localization/on"],
+    25: ["POST /localization/off"],
+    30: ["GET"],
+    35: ["POST /stop_save"],
+}
+VIEWER_GETS = ("/status.json", "/map.png", "/frame.png", "/ar.png")
+
+
+def phase_viewer(dev, n_frames: int = 40, n_node: int = 10):
+    """The RGB-D SDSlamSystem on phase 4's orbit with a LiveViewer: a client
+    thread drives it over HTTP (renders, the AR plane, localization on and
+    off, stop) while another polls it; then an RGBDNode over the same
+    facade, the CLI with --viewer-port, and the V4L2 camera where the
+    machine has one. Returns {kernel: launches}."""
+    import contextlib
+    import importlib.util
+    import io
+    import os
+    import re
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from sdslam_tpu_torch import cli
+    from sdslam_tpu_torch.io import datasets, ros_nodes, synthetic
+    from sdslam_tpu_torch.system import RGBD, SDSlamSystem
+    from sdslam_tpu_torch.viewer_server import LiveViewer
+
+    cfg = main_config()
+    seq = synthetic.SyntheticSequence(cfg.camera, n_frames=n_frames, trajectory="orbit",
+                                      radius=0.06, yaw_amp=0.04, device=dev)
+    frames = sensor_frames(seq, range(n_frames))
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    out = {"renders": "matplotlib" if has_mpl else "matplotlib absent"}
+
+    reset_launches()
+    sysm = SDSlamSystem(cfg, sensor=RGBD, device=dev)
+    viewer = LiveViewer(sysm)
+    port = viewer.start(port=0)
+    url = f"http://127.0.0.1:{port}"
+
+    def request(method, path):
+        t0 = time.perf_counter()
+        req = urllib.request.Request(url + path, method=method)
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                code, body = r.status, r.read()
+        except urllib.error.HTTPError as e:
+            code, body = e.code, e.read()
+        return code, body, (time.perf_counter() - t0) * 1e3
+
+    reached = {k: threading.Event() for k in VIEWER_SCRIPT}
+    done = {k: threading.Event() for k in VIEWER_SCRIPT}
+    gets, posts, errors = [], [], []
+    stop_polling = threading.Event()
+    polls = []
+
+    def client():
+        try:
+            for k, steps in VIEWER_SCRIPT.items():
+                if not reached[k].wait(120):
+                    break
+                for step in steps:
+                    if step == "GET":
+                        for path in VIEWER_GETS:
+                            code, body, ms = request("GET", path)
+                            gets.append({"frame": k, "path": path, "code": code, "ms": ms,
+                                         "png": body[:8] == b"\x89PNG\r\n\x1a\n",
+                                         "body": body[:80].decode("latin-1")
+                                         if path != "/status.json" and code != 200 else None})
+                    else:
+                        code, _, ms = request("POST", step.split()[1])
+                        posts.append({"frame": k, "path": step.split()[1], "code": code})
+                done[k].set()
+        except Exception as e:  # reported and failed below
+            errors.append(repr(e))
+            for ev in done.values():
+                ev.set()
+
+    def poller():
+        while not stop_polling.is_set():
+            for path in ("/status.json", "/map.png"):
+                polls.append(request("GET", path)[0])
+            stop_polling.wait(0.05)
+
+    threads = [threading.Thread(target=client, daemon=True),
+               threading.Thread(target=poller, daemon=True)]
+    for t in threads:
+        t.start()
+    track_s, localization, boundaries = 0.0, [], []  # (frame, actions, staged copies)
+    with BlockingCallCounter() as blocking:
+        apply = blocking.watch(viewer.apply_pending)
+
+        def logged_apply():
+            acts = apply()
+            boundaries.append((k, acts, len(viewer._staged_planes)))
+            return acts
+
+        viewer.apply_pending = logged_apply
+        for k, (img, dep, ts) in enumerate(frames):
+            t0 = time.perf_counter()
+            sysm.track_rgbd(img, dep, ts)
+            track_s += time.perf_counter() - t0
+            localization.append(sysm.localization_only)
+            if sysm.stop_requested:
+                break
+            if k in reached:
+                reached[k].set()
+                done[k].wait(120)
+        sysm.finish()
+        torch.cuda.synchronize()
+    stop_polling.set()
+    for t in threads:
+        t.join(30)
+    n_tracked = k + 1
+    viewer.stop()
+    staged_at = next((f for f, acts, _ in boundaries if "plane_add" in acts), None)
+    cleared_at = next((f for f, _, n in boundaries if staged_at is not None and f >= staged_at
+                       and n == 0), None)
+    out.update(
+        tracked_frames=n_tracked, stop_frame=k, tracking_fps_polled=n_tracked / track_s,
+        main_wall_fps=EMITTED.get("main", {}).get("wall_fps"), polls=len(polls),
+        poll_codes=sorted(set(polls)), gets=gets, posts=posts,
+        plane={"staged_at": staged_at, "cleared_at": cleared_at, "found": len(viewer.planes)},
+        localization_frames=[i for i, on in enumerate(localization) if on],
+        apply_pending_blocking_calls=blocking.count, client_errors=errors,
+        status=sysm.get_tracking_state())
+    for path in VIEWER_GETS:
+        ms = [g["ms"] for g in gets if g["path"] == path and g["code"] == 200]
+        out.setdefault("get_ms", {})[path] = statistics.median(ms) if ms else None
+
+    # an RGBDNode over the same facade after a reset: depth 4 ms late
+    sysm.reset()
+    ros = FakeRospy()
+    node = ros_nodes.RGBDNode(sysm, ros=ros).start()
+    for img, dep, ts in frames[:n_node]:
+        node.on_image(ros_image(ts, img, "mono8"))
+        node.on_depth(ros_image(ts + 0.004, dep, "16UC1"))
+    sysm.finish()
+    pub = ros.pubs[ros_nodes.ODOM_TOPIC].msgs
+    traj = [np.asarray(T, np.float64) for T in sysm.tracker.trajectory]
+    node_err = max((float(np.abs(np.asarray(r["position"]) + T[:3, :3].T @ T[:3, 3]).max())
+                    for r, T in zip(pub, traj)), default=None)
+    out["ros_node"] = {"odometry": len(pub), "max_position_err": node_err,
+                       "status": sysm.get_tracking_state()}
+
+    # the CLI with the live viewer on 10 frames written as a TUM folder
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "tum")
+        datasets.write_tum_sequence(root, (seq.frame(i) for i in range(n_node)),
+                                    seq.poses[:n_node].numpy(),
+                                    depth_factor=cfg.tracking.depth_map_factor)
+        traj_path = os.path.join(tmp, "trajectory.txt")
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            cli.main(["rgbd", config_yaml(cfg, os.path.join(tmp, "camera.yaml")), root,
+                      "--viewer-port", "0", "--max-frames", str(n_node), "--traj-out", traj_path])
+        url_line = re.search(r"live viewer at http://127\.0\.0\.1:\d+", log.getvalue())
+        out["cli"] = {"url_line": url_line.group(0) if url_line else None,
+                      "tum_lines": len(open(traj_path).read().strip().splitlines())}
+
+    if os.path.exists("/dev/video0"):
+        from sdslam_tpu_torch.io.camera import V4L2Camera
+
+        with V4L2Camera("/dev/video0", cfg.camera.width, cfg.camera.height) as cam:
+            _, img = cam.read()
+        out["v4l2"] = {"shape": list(img.shape), "dtype": str(img.dtype)}
+    else:
+        out["v4l2"] = "no /dev/video0"
+    launches = read_launches("viewer")
+    emit("viewer", frames=n_frames, launches=launches, **out)
+
+    if errors:
+        raise AssertionError(f"viewer: client failed: {errors}")
+    for g in gets:
+        if g["path"] == "/status.json" or has_mpl:
+            if g["code"] != 200 or (g["path"] != "/status.json" and not g["png"]):
+                raise AssertionError(f"viewer: GET {g['path']} at frame {g['frame']}: {g}")
+        elif g["code"] != 500 or "matplotlib" not in (g["body"] or ""):
+            raise AssertionError(f"viewer: without matplotlib GET {g['path']} gave {g}")
+    if len(gets) != 3 * len(VIEWER_GETS) or any(p["code"] != 200 for p in posts):
+        raise AssertionError(f"viewer: requests {len(gets)} GETs, posts {posts}")
+    if staged_at is None or cleared_at is None or cleared_at - staged_at > 5:
+        raise AssertionError(f"viewer: plane staging {out['plane']}")
+    if out["localization_frames"] != list(range(21, 26)):
+        raise AssertionError(f"viewer: localization on at frames {out['localization_frames']}")
+    if k != 36:
+        raise AssertionError(f"viewer: the loop stopped after frame {k}, not 36")
+    if blocking.count != 0:
+        raise AssertionError(f"viewer: apply_pending made {blocking.count} blocking calls")
+    if not (len(pub) == n_node and node_err is not None and node_err < 1e-6):
+        raise AssertionError(f"viewer: ROS node {out['ros_node']}")
+    if out["cli"]["url_line"] is None or out["cli"]["tum_lines"] != n_node:
+        raise AssertionError(f"viewer: CLI {out['cli']}")
+    return launches
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1891,11 +2319,15 @@ def main():
     by_path = {}
     for name, fn in (("main", phase_main), ("reloc", phase_reloc), ("loop", phase_loop),
                      ("mono", phase_mono), ("fusion", phase_fusion), ("io", phase_io),
-                     ("dist", phase_dist), ("pipelined", phase_pipelined)):
+                     ("dist", phase_dist), ("pipelined", phase_pipelined),
+                     ("pattern", phase_pattern), ("viewer", phase_viewer)):
         t0 = time.perf_counter()
         by_path[name] = fn(dev)
         seconds[name] = time.perf_counter() - t0
     emit("seconds", **seconds)
+    if seconds["pattern"] + seconds["viewer"] > 60.0:
+        raise AssertionError(f"phases 12 and 13 took {seconds['pattern'] + seconds['viewer']:.1f} s "
+                             "> 60 s")
 
     # per kernel: its last case's numbers (the shape of its main-path call),
     # and launches x (ms - bound_ms) and launches x (device_ms - bound_ms),

@@ -6,12 +6,18 @@ Examples/RGB-D/rgbd.cc, Examples/Fusion/monocular_imu.cc):
     python -m sdslam_tpu_torch.cli rgbd <config.yaml> <tum_sequence_dir>
     python -m sdslam_tpu_torch.cli fusion <config.yaml> <euroc_dir>
     python -m sdslam_tpu_torch.cli synthetic [--sensor rgbd|monocular] [--frames N]
+    python -m sdslam_tpu_torch.cli calibration <image_dir> [--cell-mm 30.2] [--out cam.yaml]
 
 Each run tracks on `--device` (default cuda; `--device cpu` runs the plain
 PyTorch versions of the kernels), prints a progress line every 10 frames
 and writes the trajectory in TUM format (`--traj-out`), and optionally
 the npz map (`--save-map`) and the reference's YAML map
-(`--save-trajectory-yaml`, PNGs in a folder beside it).
+(`--save-trajectory-yaml`, PNGs in a folder beside it). `monocular` reads
+a live V4L2 camera when its data argument is a /dev/video* device, paced at
+Camera.fps. `--viewer-port PORT` serves the live viewer (viewer_server.py)
+at http://127.0.0.1:PORT while tracking (0 picks a free port).
+`calibration` estimates the intrinsics from chessboard views (6x4 inner
+corners) and writes them as the reference's YAML.
 """
 
 from __future__ import annotations
@@ -19,18 +25,6 @@ from __future__ import annotations
 import argparse
 import os
 import time
-
-# what the JAX package's CLI has and the port does not yet, with the item
-# of ROADMAP.md's module queue that brings it
-_NOT_PORTED = {
-    "camera": "live /dev/video capture (io/camera.py) comes with M17c, viewers and "
-              "device front-ends",
-    "viewer": "the live viewer (viewer_server.py) comes with M17c, viewers and device "
-              "front-ends",
-    "calibration": "chessboard calibration (features/pattern.py) comes with the last item, "
-                   "pattern initialization and calibration",
-}
-
 
 def _common(sub):
     sub.add_argument("--traj-out", default="trajectory.txt")
@@ -44,7 +38,7 @@ def _common(sub):
     sub.add_argument("--no-loop-closing", action="store_true")
     sub.add_argument("--max-frames", type=int, default=None)
     sub.add_argument("--viewer-port", type=int, default=None, metavar="PORT",
-                     help="live map/frame view (not ported yet)")
+                     help="serve a live map/frame view at http://127.0.0.1:PORT while tracking")
     sub.add_argument("--device", default="cuda",
                      help="torch device to track on (default cuda; cpu runs the plain "
                           "versions of the kernels)")
@@ -97,9 +91,15 @@ def _system_and_frames(args):
 
     cfg = load_config(args.config)
     if args.cmd == "monocular":
-        if args.data.startswith("/dev/video"):
-            raise NotImplementedError(_NOT_PORTED["camera"])
         sysm = SDSlamSystem(cfg, sensor=MONOCULAR, loop_closing=loop, device=args.device)
+        if args.data.startswith("/dev/video"):
+            # live capture, paced at the camera rate (the reference's
+            # monocular example opens /dev/videoN the same way)
+            from sdslam_tpu_torch.io.camera import live_frames
+
+            frames = live_frames(args.data, cfg.camera.width, cfg.camera.height,
+                                 fps=cfg.camera.fps or 30.0)
+            return sysm, ((ts, img, None) for ts, img in frames)
         if os.path.exists(os.path.join(args.data, "mav0", "cam0", "data.csv")):
             ds = datasets.EuRoCDataset(args.data)  # EuRoC's images, without its IMU
         else:
@@ -130,10 +130,16 @@ def main(argv=None):
 
     args = _parser().parse_args(argv)
     if args.cmd == "calibration":
-        raise NotImplementedError(_NOT_PORTED["calibration"])
-    if args.viewer_port is not None:
-        raise NotImplementedError(_NOT_PORTED["viewer"])
+        return _run_calibration(args)
     sysm, frames = _system_and_frames(args)
+
+    live = None
+    if args.viewer_port is not None:
+        from sdslam_tpu_torch.viewer_server import LiveViewer
+
+        live = LiveViewer(sysm)
+        port = live.start(port=args.viewer_port)
+        print(f"live viewer at http://127.0.0.1:{port}", flush=True)
 
     if args.load_map:
         sysm.load_map(args.load_map)
@@ -164,6 +170,8 @@ def main(argv=None):
             break
 
     sysm.finish()
+    if live is not None:
+        live.stop()
     sysm.save_trajectory_tum(args.traj_out)
     print(f"saved {args.traj_out} ({n} poses); final state {sysm.get_tracking_state()}")
     if args.save_map:
@@ -174,6 +182,36 @@ def main(argv=None):
         sysm.save_trajectory(args.save_trajectory_yaml, folder)
         print(f"saved reference-format map {args.save_trajectory_yaml}")
     sysm.shutdown()
+
+
+def _run_calibration(args):
+    """Chessboard calibration over every image in a folder; writes the
+    intrinsics as the reference's YAML (Examples/Calibration)."""
+    import glob
+
+    import numpy as np
+    from PIL import Image
+
+    from sdslam_tpu_torch.features.pattern import calibrate_from_images
+
+    paths = sorted(p for p in glob.glob(os.path.join(args.image_dir, "*"))
+                   if p.lower().endswith((".png", ".jpg", ".jpeg", ".bmp", ".pgm")))
+    if not paths:
+        raise SystemExit(f"no images found in {args.image_dir}")
+    imgs = [np.asarray(Image.open(p).convert("L")) for p in paths]
+    cam, rms = calibrate_from_images(imgs, cell=args.cell_mm / 1000.0)
+    with open(args.out, "w") as f:
+        f.write("%YAML:1.0\n\n")
+        f.write(f"Camera.Width: {cam.width}\n")
+        f.write(f"Camera.Height: {cam.height}\n")
+        f.write(f"Camera.fx: {cam.fx:.6f}\nCamera.fy: {cam.fy:.6f}\n")
+        f.write(f"Camera.cx: {cam.cx:.6f}\nCamera.cy: {cam.cy:.6f}\n")
+        f.write(f"Camera.k1: {cam.k1:.6f}\nCamera.k2: {cam.k2:.6f}\n")
+        f.write(f"Camera.p1: {cam.p1:.6f}\nCamera.p2: {cam.p2:.6f}\n")
+        f.write(f"Camera.k3: {cam.k3:.6f}\n")
+    print(f"calibrated {len(imgs)} views, reprojection RMS {rms:.4f} px")
+    print(f"wrote {args.out}")
+    return 0
 
 
 if __name__ == "__main__":

@@ -90,6 +90,11 @@ class ORBExtractor:
         uv_und = cam_mod.undistort_pixels(self.cam, uv)
         return FrameFeatures(uv, uv_und, octv, ang, score, desc, valid), tuple(pyramid)
 
+    def __call__(self, img) -> Tuple[FrameFeatures, Tuple[torch.Tensor, ...]]:
+        """img [H,W] (any real dtype) -> (FrameFeatures, pyramid tuple)."""
+        feats, pyramid, _, _ = self.core(torch.as_tensor(img), None, 1.0)
+        return feats, pyramid
+
     def core(self, img, depth_img, depth_factor: float):
         """Extraction + RGB-D keypoint channels. depth_img=None -> mono
         (-1 depth / u_r). Depth may arrive decimated 2x (the packed-frame

@@ -110,6 +110,17 @@ def in_image(cam: CameraModel, uv, border: float = 0.0):
     return (u >= border) & (u < cam.width - border) & (v >= border) & (v < cam.height - border)
 
 
+def project_jacobian(cam: CameraModel, Xc):
+    """d(uv)/d(Xc) for the undistorted pinhole model: [...,2,3]."""
+    x, y, z = Xc[..., 0], Xc[..., 1], Xc[..., 2]
+    zi = 1.0 / torch.where(torch.abs(z) < 1e-6, torch.full_like(z, 1e-6), z)
+    zi2 = zi * zi
+    zero = torch.zeros_like(x)
+    row0 = torch.stack([cam.fx * zi, zero, -cam.fx * x * zi2], dim=-1)
+    row1 = torch.stack([zero, cam.fy * zi, -cam.fy * y * zi2], dim=-1)
+    return torch.stack([row0, row1], dim=-2)
+
+
 def virtual_right(cam: CameraModel, u, depth):
     """RGB-D virtual right coordinate: u - bf/d; -1 if no depth."""
     ok = depth > 0

@@ -27,6 +27,10 @@ def _small(theta2):
     return theta2 < 1e-8
 
 
+def quat_identity(dtype=torch.float32, device=None):
+    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+
+
 def quat_normalize(q):
     return q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=_EPS)
 
@@ -41,6 +45,19 @@ def quat_mul(a, b):
         aw * by - ax * bz + ay * bw + az * bx,
         aw * bz + ax * by - ay * bx + az * bw,
     ], dim=-1)
+
+
+def quat_conj(q):
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+
+
+def quat_rotate(q, v):
+    """Rotate vectors v [...,3] by quaternions q [...,4]."""
+    qv = q[..., 1:]
+    w = q[..., :1]
+    qv, v = torch.broadcast_tensors(qv, v)
+    t = 2.0 * torch.linalg.cross(qv, v)
+    return v + w * t + torch.linalg.cross(qv, t)
 
 
 def quat_to_mat(q):
@@ -96,6 +113,11 @@ def hat(phi):
     zero = torch.zeros_like(x)
     m = torch.stack([zero, -z, y, z, zero, -x, -y, x, zero], dim=-1)
     return m.reshape(phi.shape[:-1] + (3, 3))
+
+
+def vee(M):
+    """Skew-symmetric [...,3,3] -> [...,3] (the inverse of hat)."""
+    return torch.stack([M[..., 2, 1], M[..., 0, 2], M[..., 1, 0]], dim=-1)
 
 
 def _eye3(like):
@@ -170,6 +192,10 @@ def so3_left_jacobian_inv(phi):
     c = torch.where(_small(theta2), 1.0 / 12.0 + theta2 / 720.0,
                     (1.0 - cot) / torch.clamp(theta2, min=_EPS))
     return _eye3(K) - 0.5 * K + c[..., None, None] * K2
+
+
+def se3_identity(dtype=torch.float32, device=None):
+    return torch.eye(4, dtype=dtype, device=device)
 
 
 def se3_from_Rt(R, t):

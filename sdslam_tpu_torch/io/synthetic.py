@@ -3,7 +3,9 @@ sdslam_tpu/io/synthetic.py).
 
 The scene is built by the same numpy RNG recipe (bit-identical scene
 parameters for a seed); rendering runs in torch on whatever device the
-caller names, so the card renders its own frames.
+caller names, so the card renders its own frames. `PosterSequence` adds a
+planar poster with a chessboard inset for the chessboard initialization,
+rendered on the host by its homography.
 """
 
 from __future__ import annotations
@@ -174,6 +176,89 @@ def forward_trajectory(n_frames: int, step: float = 0.02, yaw_rate: float = 0.0)
         for i in range(n_frames)
     ]
     return torch.as_tensor(np.stack(poses))
+
+
+def poster_trajectory(n_frames: int, hold: int = 8):
+    """A hand-held sweep in front of a poster: the camera holds still for
+    `hold` frames, then its centre moves by (5, 1, -3) cm and its rotation
+    vector reaches (0.02, -0.04, 0.01) rad on a smooth ease; starts at
+    identity."""
+    poses = []
+    for s in np.concatenate([np.zeros(hold), np.linspace(0.0, 1.0, n_frames - hold)]):
+        a = 0.5 - 0.5 * np.cos(np.pi * s)
+        c = np.array([0.05 * a, 0.01 * np.sin(np.pi * s), -0.03 * a], np.float32)
+        phi = np.array([0.02 * np.sin(np.pi * s), -0.04 * a, 0.01 * a], np.float32)
+        poses.append(_pose_from_center(c, phi))
+    return torch.as_tensor(np.stack(poses))
+
+
+class PosterSequence:
+    """A 1.0 x 0.75 m poster at depth `z` (m), turned by the rotation vector
+    `tilt` about its centre on the optical axis: the room scene's back wall
+    as the camera sees it from 2.5 m, scaled onto the poster, with a
+    chessboard of 6x4 inner corners and `cell` m squares at its centre,
+    inside a half-cell white margin. The board is printed on grained
+    paper: its squares keep 0.35 of the texture's contrast. The tilt puts
+    each board corner in its own perspective, so no two corners score
+    alike. Frames are u8 images rendered on the host by the poster's
+    homography (cv2.warpPerspective, mid-grey outside the poster); the
+    texture is evaluated once on `device`."""
+
+    SIZE = (1.0, 0.75)
+    GRAIN = 0.35
+
+    def __init__(self, cam: CameraModel, poses, z: float = 0.5, tilt=(0.12, -0.08, 0.03),
+                 cell: float = 0.0283, device="cuda"):
+        self.cam = cam
+        self.poses = torch.as_tensor(poses, dtype=torch.float32)
+        self.timestamps = np.arange(len(self.poses)) / 30.0
+        self.ppm = 1.25 * cam.fx / z  # texture pixels per metre
+        # poster frame in the world: x, y along the poster, origin at its centre
+        self.T_poster = np.eye(4)
+        self.T_poster[:3, :3] = lie.so3_exp(torch.tensor(tilt, dtype=torch.float64)).numpy()
+        self.T_poster[:3, 3] = (0.0, 0.0, z)
+        cols, rows = 6, 4
+        w, h = int(round(self.SIZE[0] * self.ppm)), int(round(self.SIZE[1] * self.ppm))
+        self.corner = (-0.5 * self.SIZE[0], -0.5 * self.SIZE[1])  # poster coords of texel (0, 0)
+        dev = _device.resolve(device)
+        x = self.corner[0] + (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / self.ppm
+        y = self.corner[1] + (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / self.ppm
+        wall = 2.5 / z  # poster -> back-wall coordinates
+        X = torch.stack([wall * x[None, :].expand(h, w), wall * y[:, None].expand(h, w),
+                         torch.full((h, w), 2.5, device=dev)], -1)
+        scene = make_room_scene().to(dev)
+        tex = torch.clamp(scene_intensity(scene, X, torch.zeros((h, w), dtype=torch.int64,
+                                                                device=dev)) * 255.0, 0, 255)
+        # board coordinates in cells, origin at the first inner corner:
+        # squares (i, j) for i in [-1, cols), j in [-1, rows), black where
+        # i + j is even
+        BX = (x[None, :].expand(h, w) + 0.5 * (cols - 1) * cell) / cell
+        BY = (y[:, None].expand(h, w) + 0.5 * (rows - 1) * cell) / cell
+        in_board = (BX >= -1) & (BX < cols) & (BY >= -1) & (BY < rows)
+        in_margin = (BX >= -1.5) & (BX < cols + 0.5) & (BY >= -1.5) & (BY < rows + 0.5)
+        black = (torch.floor(BX) + torch.floor(BY)).remainder(2) == 0
+        g = self.GRAIN
+        board = torch.where(in_board & black, g * tex, 255.0 - g * (255.0 - tex))
+        self.texture = torch.where(in_margin, board, tex).round().to(torch.uint8).cpu().numpy()
+
+    def __len__(self):
+        return len(self.timestamps)
+
+    def frame(self, i: int):
+        """(timestamp, u8 image [H,W])."""
+        import cv2
+
+        cam = self.cam
+        T = self.poses[i].numpy().astype(np.float64) @ self.T_poster  # poster -> camera
+        K = np.array([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]])
+        # texel (u, v) -> poster point (corner + (u + 0.5) / ppm, ..., 0) -> pixel
+        origin = np.array([self.corner[0] + 0.5 / self.ppm, self.corner[1] + 0.5 / self.ppm, 0.0])
+        Hm = K @ np.stack([T[:3, 0] / self.ppm, T[:3, 1] / self.ppm,
+                           T[:3, :3] @ origin + T[:3, 3]], 1)
+        img = cv2.warpPerspective(self.texture, Hm, (cam.width, cam.height),
+                                  flags=cv2.INTER_LINEAR, borderMode=cv2.BORDER_CONSTANT,
+                                  borderValue=128)
+        return self.timestamps[i], img
 
 
 def make_dist_ba_problem(rng, K, P, Mo, cam, noise_px: float = 0.01):

@@ -95,6 +95,18 @@ def orientations(img, uv, valid):
     return torch.where(valid, ang, torch.zeros_like(ang))
 
 
+def extract_patches(img, uv, half: int):
+    """[N, 2h+1, 2h+1] patches centred on the rounded keypoints uv [N,2],
+    clamped at the image border."""
+    H, W = img.shape
+    d = torch.arange(-half, half + 1, device=img.device)
+    x0 = torch.round(uv[:, 0]).to(torch.int64)
+    y0 = torch.round(uv[:, 1]).to(torch.int64)
+    ry = torch.clamp(y0[:, None] + d, 0, H - 1)  # [N,w]
+    rx = torch.clamp(x0[:, None] + d, 0, W - 1)
+    return img[ry[:, :, None], rx[:, None, :]]
+
+
 def descriptors(img_blurred, uv, angle, valid):
     """Steered-BRIEF 256-bit descriptors -> [N, 8] int32 (uint32 words)."""
     H, W = img_blurred.shape

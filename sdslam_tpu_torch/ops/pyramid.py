@@ -1,6 +1,8 @@
 """Image pyramid ops (port of sdslam_tpu/ops/pyramid.py): separable
 Gaussian blur as sliced multiply-adds with edge replication, and an exact
-2x decimation (5-tap blur, then stride 2)."""
+2x decimation (5-tap blur, then stride 2). A non-dyadic scale factor
+blurs each level (sigma 0.8) and resizes it linearly with antialiasing,
+as jax.image.resize does when it downsamples."""
 
 from __future__ import annotations
 
@@ -42,14 +44,23 @@ def downsample2(img):
     return blurred[::2, ::2].contiguous()
 
 
+def level_scales(n_levels: int, scale_factor: float) -> List[float]:
+    return [scale_factor**i for i in range(n_levels)]
+
+
 def build_pyramid(img, n_levels: int, scale_factor: float = 2.0):
-    """img [H,W] float32 -> list of levels [H/s, W/s] (dyadic only: every
-    configuration the repo ships uses scale factor 2)."""
-    if scale_factor != 2.0:
-        raise NotImplementedError("non-dyadic pyramids are not ported yet")
+    """img [H,W] float32 -> list of levels [H/s^i, W/s^i]."""
     levels = [img]
-    for _ in range(1, n_levels):
-        levels.append(downsample2(levels[-1]))
+    for i in range(1, n_levels):
+        prev = levels[-1]
+        if scale_factor == 2.0:
+            levels.append(downsample2(prev))
+        else:
+            h = int(round(img.shape[0] / scale_factor**i))
+            w = int(round(img.shape[1] / scale_factor**i))
+            levels.append(F.interpolate(gaussian_blur(prev, 0.8)[None, None], size=(h, w),
+                                        mode="bilinear", align_corners=False,
+                                        antialias=True)[0, 0])
     return levels
 
 

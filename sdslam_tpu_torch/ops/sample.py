@@ -25,6 +25,26 @@ def _floor_split(c):
     return c0, c - c0, c0.to(torch.int64)
 
 
+def sample_bilinear(img, uv):
+    """Bilinear sample of img [H,W] at uv [...,2]; returns (values [...],
+    valid [...]). valid marks samples whose 2x2 support is fully inside;
+    out-of-range values are 0."""
+    H, W = img.shape
+    shp = uv.shape[:-1]
+    _, wx, x0i = _floor_split(uv[..., 0].reshape(-1))
+    _, wy, y0i = _floor_split(uv[..., 1].reshape(-1))
+    valid = (x0i >= 0) & (x0i < W - 1) & (y0i >= 0) & (y0i < H - 1)
+    x0c = torch.clamp(x0i, 0, W - 2)
+    y0c = torch.clamp(y0i, 0, H - 2)
+
+    def rowval(dx):  # y-blend of rows (y0, y0+1) at column x0+dx
+        return (1.0 - wy) * img[y0c, x0c + dx] + wy * img[y0c + 1, x0c + dx]
+
+    out = (1.0 - wx) * rowval(0) + wx * rowval(1)
+    out = torch.where(valid, out, torch.zeros_like(out))
+    return out.reshape(shp), valid.reshape(shp)
+
+
 def sample_bilinear_patch(img, uv_center, patch_half: int = 2):
     """Bilinear-sample a (2*patch_half)^2 patch of INTEGER offsets around
     each center (dy-outer/dx-inner order). Returns (values [N, P*P],

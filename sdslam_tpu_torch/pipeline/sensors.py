@@ -10,6 +10,9 @@
     accel-minus-gravity(3)], gravity tracked by a low-pass filter. The
     tracker runs it inside the frame step, so it fuses the current frame's
     tracked pose (the fusion sensor).
+  * ConstantVelocityEKF: the constant-velocity filter in float64 numpy
+    on the host (the EKF class of the reference, for callers that track
+    poses on the host).
   * IMUStateEKF: the same 16-state filter in float64 numpy on the host,
     the facade's introspection mirror of the fusion sensor.
 
@@ -18,7 +21,8 @@ Every device function is sync-free: flags stay 0-d bool tensors.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -242,6 +246,95 @@ def imu_update(s: IMUState, Tcw, gyro, accel, dt, ok) -> IMUState:
         gravity=torch.where(ok, gravity, s.gravity),
         updated=s.updated | ok,
     )
+
+
+# ---------------------------------------------------------------------------
+# The constant-velocity filter in float64 numpy on the host
+# ---------------------------------------------------------------------------
+
+
+def _np_se3_exp(xi: np.ndarray) -> np.ndarray:
+    rho, phi = xi[:3], xi[3:]
+    R = _R.from_rotvec(phi).as_matrix()
+    th2 = float(phi @ phi)
+    K = np.array([[0, -phi[2], phi[1]], [phi[2], 0, -phi[0]], [-phi[1], phi[0], 0]])
+    if th2 < 1e-10:
+        V = np.eye(3) + 0.5 * K
+    else:
+        th = np.sqrt(th2)
+        V = np.eye(3) + (1 - np.cos(th)) / th2 * K + (th - np.sin(th)) / (th2 * th) * (K @ K)
+    T = np.eye(4)
+    T[:3, :3] = R
+    T[:3, 3] = V @ rho
+    return T
+
+
+def _np_se3_log(T: np.ndarray) -> np.ndarray:
+    phi = _R.from_matrix(T[:3, :3]).as_rotvec()
+    th2 = float(phi @ phi)
+    K = np.array([[0, -phi[2], phi[1]], [phi[2], 0, -phi[0]], [-phi[1], phi[0], 0]])
+    if th2 < 1e-10:
+        Vinv = np.eye(3) - 0.5 * K
+    else:
+        th = np.sqrt(th2)
+        half = 0.5 * th
+        cot = half * np.cos(half) / np.sin(half)
+        Vinv = np.eye(3) - 0.5 * K + (1 - cot) / th2 * (K @ K)
+    return np.concatenate([Vinv @ T[:3, 3], phi])
+
+
+@dataclasses.dataclass
+class ConstantVelocityEKF:
+    """Constant-velocity EKF over the body twist (EKF.cc): predicted pose =
+    Exp(x dt) last_pose, measurement = Log(T_meas last_pose^-1) / dt."""
+
+    sigma_a: float = SIGMA_A  # twist random walk (m/s^2)
+    sigma_alpha: float = SIGMA_ALPHA  # rad/s^2
+    sigma_v_meas: float = SIGMA_V_MEAS  # m/s
+    sigma_w_meas: float = SIGMA_W_MEAS  # rad/s
+
+    x: np.ndarray = dataclasses.field(default_factory=lambda: np.zeros(6))
+    P: np.ndarray = dataclasses.field(default_factory=lambda: np.eye(6) * 1e2)
+    last_pose: Optional[np.ndarray] = None  # [4,4] Tcw
+    started: bool = False
+
+    def restart(self):
+        """EKF::Restart (on tracking failure or relocalization)."""
+        self.x = np.zeros(6)
+        self.P = np.eye(6) * 1e2
+        self.last_pose = None
+        self.started = False
+
+    def predict(self, dt: float) -> Optional[np.ndarray]:
+        """Returns the predicted Tcw (None before the first update)."""
+        if not self.started or self.last_pose is None:
+            return None
+        Q = np.diag([self.sigma_a**2] * 3 + [self.sigma_alpha**2] * 3) * max(dt, 1e-4) ** 2
+        self.P = self.P + Q
+        return (_np_se3_exp(self.x * dt) @ self.last_pose).astype(np.float32)
+
+    def update(self, T_meas: np.ndarray, dt: float) -> bool:
+        """Fuse a tracked pose. Returns False if the chi2 gate rejects it
+        (the pose is then not absorbed into the velocity)."""
+        T_meas = np.asarray(T_meas, np.float32)
+        if self.last_pose is None:
+            self.last_pose = T_meas
+            return True
+        dt = max(dt, 1e-4)
+        rel = T_meas @ np.linalg.inv(self.last_pose)
+        z = _np_se3_log(rel.astype(np.float64)) / dt
+        R = np.diag([self.sigma_v_meas**2] * 3 + [self.sigma_w_meas**2] * 3) / dt**2 * dt**2
+        y = z - self.x
+        S = self.P + R
+        m2 = float(y @ np.linalg.solve(S, y))
+        if self.started and m2 > CHI2_GATE_6DOF * 10:
+            return False
+        K = self.P @ np.linalg.inv(S)
+        self.x = self.x + K @ y
+        self.P = (np.eye(6) - K) @ self.P
+        self.last_pose = T_meas
+        self.started = True
+        return True
 
 
 # ---------------------------------------------------------------------------

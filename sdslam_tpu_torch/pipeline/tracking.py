@@ -724,8 +724,10 @@ def _nanmedian(x: torch.Tensor) -> torch.Tensor:
 
 
 class MonoTracker(RGBDTracker):
-    """Monocular front-end: two-view bootstrap (H/F RANSAC) and map growth
-    by triangulation. The initial map's median depth is normalized to 1.
+    """Monocular front-end: two-view bootstrap (H/F RANSAC), whose map's
+    median depth is normalized to 1, or with `use_pattern` a metric map from
+    the first frame that sees the chessboard; then map growth by
+    triangulation.
     `track(img, ts)` takes no depth; frames go through the unpacked step."""
 
     _HAS_DEPTH = False
@@ -733,10 +735,6 @@ class MonoTracker(RGBDTracker):
     INIT_SAMPLES = 200  # RANSAC hypotheses of the two-view bootstrap
 
     def __init__(self, cfg: SystemConfig, device="cuda"):
-        if cfg.tracking.use_pattern:
-            raise NotImplementedError(
-                "monocular chessboard initialization (use_pattern) is not ported yet: it is "
-                "the last slice of ROADMAP.md's queue (M13)")
         super().__init__(cfg, device=device)
         self._init_frame: Optional[Frame] = None
         self._init_ts = 0.0
@@ -752,8 +750,70 @@ class MonoTracker(RGBDTracker):
         gen = torch.Generator(device=self.device).manual_seed(self._init_seed)
         return sample_sets(valid, self.INIT_SAMPLES, 8, generator=gen)
 
+    def _read(self, t: torch.Tensor) -> np.ndarray:
+        """Copy a device tensor to the host (one counted device->host sync)."""
+        self.host_syncs += 1
+        return t.cpu().numpy()
+
+    def _insert_keyframe(self, slot: int, fr: Frame, T, frame_id: int, ts: float, parent: int):
+        """Insert frame `fr` at pose T as keyframe `slot`, no observations bound."""
+        g = fr.features
+        dev, i32 = self.device, torch.int32
+        self.ms = keyframe_step(
+            self.cam, self.ms, slot, T, g.uv, g.uv_und, g.octave, g.angle, g.desc, g.valid,
+            fr.depth, fr.uright, torch.full((g.capacity,), -1, dtype=i32, device=dev),
+            self._stored_pyr(fr), torch.tensor(frame_id, dtype=i32, device=dev),
+            torch.tensor(self._rel_ts(ts), dtype=torch.float32, device=dev),
+            torch.tensor(parent, dtype=i32, device=dev), scale_factor=self.cfg.orb.scale_factor,
+            n_levels=self.cfg.orb.n_levels)
+
+    def _pattern_initialize(self, frame: Frame, timestamp: float) -> bool:
+        """Metric-scale bootstrap from a chessboard
+        (Tracking::PatternInitialization): the first frame that sees the
+        pattern becomes the identity-pose keyframe, and every keypoint whose
+        ray hits the board rectangle spawns a metric map point. Each attempt
+        reads the level-0 image, the keypoints and, on success, the inlier
+        count on the host (counted in host_syncs)."""
+        from sdslam_tpu_torch.features import pattern as pat
+
+        f = frame.features
+        img = self._read(frame.pyramid[0])
+        res = pat.detect_pattern(np.clip(img, 0, 255).astype(np.uint8), self.cam)
+        if not res.found:
+            return False
+        uv_valid = self._read(torch.cat([f.uv_und, f.valid[:, None].to(f.uv_und.dtype)], 1))
+        inside, X_cam = pat.metric_points_on_board(res, self.cam, uv_valid[:, :2])
+        inside &= uv_valid[:, 2] > 0
+        if inside.sum() < 20:
+            return False
+        dev = self.device
+        eye = torch.eye(4, device=dev)
+        slot = self._free_kf_slot()
+        self._insert_keyframe(slot, frame, eye, self.st.frame_id, timestamp, -1)
+        # the frame's pose is the identity: camera-frame points are world points
+        self.ms, _ = M.create_points(self.ms, slot, torch.as_tensor(inside, device=dev),
+                                     torch.as_tensor(X_cam, device=dev))
+        self.ms = M.finalize_point_statistics(self.ms, self.cfg.orb.scale_factor,
+                                              self.cfg.orb.n_levels)
+        st = self.st
+        st.last_assoc = self.ms.kf_mp[slot]
+        st.last_kf_slot = slot
+        st.T_last = np.eye(4, dtype=np.float32)
+        st.last_ts = timestamp
+        st.last_frame = frame
+        st.status = "OK"
+        st.frames_since_kf = 0
+        st.ref_kf_inliers = int(self._read((st.last_assoc >= 0).sum()))
+        self._start_device_state(slot, eye, timestamp)
+        return True
+
     def _initialize(self, frame: Frame, timestamp: float):
         f = frame.features
+        if self.cfg.tracking.use_pattern:
+            # UsePattern: the chessboard's metric init replaces the two-view
+            # bootstrap entirely
+            self._pattern_initialize(frame, timestamp)
+            return
         if self._init_frame is None:
             self._init_frame, self._init_ts = frame, timestamp
             return
@@ -778,25 +838,15 @@ class MonoTracker(RGBDTracker):
         med = _nanmedian(torch.where(inl, ires.X1[:, 2], torch.full_like(ires.X1[:, 2], np.nan)))
         X1 = ires.X1 / med
         T2 = lie.se3_from_Rt(ires.R21, ires.t21 / med)
-        dev, i32 = self.device, torch.int32
+        dev = self.device
         sf, nl = self.cfg.orb.scale_factor, self.cfg.orb.n_levels
-
-        def kf(slot, fr, T, frame_id, ts, parent):
-            g = fr.features
-            return keyframe_step(
-                self.cam, self.ms, slot, T, g.uv, g.uv_und, g.octave, g.angle, g.desc, g.valid,
-                fr.depth, fr.uright, torch.full((g.capacity,), -1, dtype=i32, device=dev),
-                self._stored_pyr(fr), torch.tensor(frame_id, dtype=i32, device=dev),
-                torch.tensor(self._rel_ts(ts), dtype=torch.float32, device=dev),
-                torch.tensor(parent, dtype=i32, device=dev), scale_factor=sf, n_levels=nl)
-
         # keyframe 1: the stored init frame at the identity
         slot1 = self._free_kf_slot()
-        self.ms = kf(slot1, self._init_frame, torch.eye(4, device=dev), self.st.frame_id - 1,
-                     self._init_ts, -1)
+        self._insert_keyframe(slot1, self._init_frame, torch.eye(4, device=dev),
+                              self.st.frame_id - 1, self._init_ts, -1)
         # keyframe 2: this frame, with the triangulated points bound to it
         slot2 = self._free_kf_slot()
-        self.ms = kf(slot2, frame, T2, self.st.frame_id, timestamp, slot1)
+        self._insert_keyframe(slot2, frame, T2, self.st.frame_id, timestamp, slot1)
         # X1 is in KF1's camera frame, which is the world frame
         self.ms, ids = M.create_points(self.ms, slot2, inl & valid, X1)
         # bind KF1's observations through the match mapping

@@ -101,6 +101,11 @@ class SDSlamSystem:
                 self.tracker.reset_reference(info["kf"])
 
     def _after_frame(self):
+        # live-viewer menu actions apply here, at the frame boundary, on the
+        # thread that owns the tracking loop (viewer_server.py)
+        lv = getattr(self, "_live_viewer", None)
+        if lv is not None:
+            lv.apply_pending()
         if self.localization_only:
             return
         if not self.loop_closing_enabled:

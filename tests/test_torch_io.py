@@ -272,20 +272,26 @@ def test_cli_rgbd_on_jax_written_sequence(rendered, tmp_path):
 
 
 @pytest.mark.parametrize("case", ["dev_video", "viewer_port", "calibration", "default_device"])
-def test_cli_unported_parts_and_default_device(case, tmp_path, monkeypatch):
-    """Live capture, the live viewer and calibration raise
-    NotImplementedError naming what brings them; without a card the
-    default --device cuda raises."""
+def test_cli_unported_parts_and_default_device(case, tmp_path, monkeypatch, capsys):
+    """The parts the CLI once left unported now run: live capture opens the
+    V4L2 device (a missing one raises OSError), the live viewer serves and
+    prints its URL, calibration reads the image folder (an empty one
+    exits naming it); without a card the default --device cuda raises."""
     cfg_path = _config_yaml(str(tmp_path / "cam.yaml"))
-    argv, err = {
-        "dev_video": (["monocular", cfg_path, "/dev/video0", "--device", "cpu"],
-                      NotImplementedError),
-        "viewer_port": (["synthetic", "--frames", "2", "--device", "cpu",
-                         "--viewer-port", "8080"], NotImplementedError),
-        "calibration": (["calibration", str(tmp_path)], NotImplementedError),
-        "default_device": (["synthetic", "--frames", "2"], RuntimeError),
-    }[case]
+    traj = ["--traj-out", str(tmp_path / "t.txt")]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(err, match="M17c|pattern initialization|CUDA is not available"):
-        cli.main(argv + ["--traj-out", str(tmp_path / "t.txt")]
-                 if case != "calibration" else argv)
+    if case == "viewer_port":
+        cli.main(["synthetic", "--frames", "2", "--device", "cpu", "--viewer-port", "0"] + traj)
+        assert "live viewer at http://127.0.0.1:" in capsys.readouterr().out
+        assert len(open(tmp_path / "t.txt").read().strip().splitlines()) == 2
+        return
+    argv, err, match = {
+        "dev_video": (["monocular", cfg_path, "/dev/video_missing", "--device", "cpu"] + traj,
+                      OSError, "video_missing"),
+        "calibration": (["calibration", str(tmp_path / "views")], SystemExit, "no images"),
+        "default_device": (["synthetic", "--frames", "2"] + traj, RuntimeError,
+                           "CUDA is not available"),
+    }[case]
+    (tmp_path / "views").mkdir()
+    with pytest.raises(err, match=match):
+        cli.main(argv)

@@ -103,11 +103,20 @@ def test_mono_jax_parity(runs):
 
 
 def test_mono_pattern_init_not_ported():
+    """use_pattern, once refused, now replaces the two-view bootstrap: a
+    frame without a board is one attempt (its image read on the host)
+    and leaves the tracker uninitialized (tests/test_torch_pattern.py
+    holds the initialization against the JAX package)."""
     cfg = port_cfg()
     cfg = tcfg.SystemConfig(camera=cfg.camera, orb=cfg.orb, map=cfg.map,
                             tracking=tcfg.TrackingConfig(use_pattern=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.MonoTracker(cfg, device="cpu")
+    tracker = tt.MonoTracker(cfg, device="cpu")
+    seq = jsyn.SyntheticSequence(JCAM, **ORBIT)
+    for i in range(2):
+        ts, img, _ = seq.frame(i)
+        tracker.track(np.array(img), ts)
+    assert tracker.st.status == "NOT_INITIALIZED" and tracker._init_frame is None
+    assert tracker.host_syncs == 2 and int(tracker.ms.kf_valid.sum()) == 0
 
 
 def test_nanmedian_matches_numpy():
