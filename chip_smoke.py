@@ -63,9 +63,15 @@ Phases (each prints one JSON line; any failure raises and exits nonzero):
               it; apply_pending must make no blocking call; then an RGBDNode
               over the same facade, the CLI with --viewer-port, and one
               V4L2 frame where /dev/video0 exists
+ 14. large    the large-map regime of tests/test_large_map.py at full
+              width: 256 keyframe slots filled from a 256-frame orbit
+              (radius 0.25, yaw 0.2), 65536 points, points with several
+              observers; incidence and covisibility over the pool,
+              relocalization of frame 77 against every slot, the world-1
+              alignment scan, local BA at slot 77
 Then the kernel table as one JSON line, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Launch counters are set to 0 before each of
-phases 4-13 and read after it (phase 10's ranks count their own measured
+phases 4-14 and read after it (phase 10's ranks count their own measured
 calls and return the counts). Phases 12 and 13 must take 60 s or less.
 
 It imports nothing from JAX or the JAX package and never runs on the CPU.
@@ -986,6 +992,9 @@ PATH_KERNELS = {
     # the RGB-D facade closes loops: loop detection runs K5's batched level
     "viewer": ("align_level", "pose_gn", "ba_schur", "hamming_best2", "align_batched",
                "chol_solve"),
+    # relocalization and the scan over the full pool (the batched level),
+    # the brute-force verify (the matrix), local BA (K3, K6)
+    "large": ("align_batched", "hamming", "pose_gn", "ba_schur", "chol_solve"),
 }
 
 
@@ -2290,6 +2299,244 @@ def phase_viewer(dev, n_frames: int = 40, n_node: int = 10):
     return launches
 
 
+class Spy:
+    """Records the arguments and results of a module function's calls
+    while active (no host sync); the original is restored on exit."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.calls, self.results = [], []
+
+    def __enter__(self):
+        self.orig = fn = getattr(self.module, self.name)
+
+        def spy(*a, **kw):
+            out = fn(*a, **kw)
+            self.calls.append((a, kw))
+            self.results.append(out)
+            return out
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def large_map_config(cam, max_keypoints: int, n_levels: int, n_kf: int, max_points: int):
+    from sdslam_tpu_torch.utils.config import MapConfig, ORBConfig, SystemConfig
+
+    return SystemConfig(camera=cam, orb=ORBConfig(max_keypoints=max_keypoints, n_levels=n_levels),
+                        map=MapConfig(max_keyframes=n_kf, max_points=max_points,
+                                      max_kps_per_frame=max_keypoints))
+
+
+def build_large_map(cfg, device, radius: float = 0.25, yaw_amp: float = 0.2, sections=None):
+    """The large-map recipe of tests/test_large_map.py, with one step
+    more: one keyframe per frame of an orbit that fills every slot, at
+    its ground-truth pose; points spawned from every second keyframe's
+    close depth readings; the statistics finalized over the whole pool at
+    the end. The added step gives points more than one observer: each
+    keyframe's associations come from search_by_projection of the points
+    the previous keyframe observes, projected with the frame's
+    ground-truth pose, as the tracker's reference-keyframe search hands
+    them to the keyframe pass (pipeline/tracking.py `_track_core` step 2).
+    With `sections` (a dict) each step's wall ms per keyframe is appended
+    under its name, the device synchronized around it. Returns (sequence,
+    extractor, map)."""
+    from sdslam_tpu_torch.features import matching
+    from sdslam_tpu_torch.features.frame import ORBExtractor, make_frame
+    from sdslam_tpu_torch.io import synthetic
+    from sdslam_tpu_torch.mapping import map_state as M
+    from sdslam_tpu_torch.ops import hamming as ham
+    from sdslam_tpu_torch.pipeline.tracking import KF_STORE_MIN_LEVEL, spawn_points
+
+    cam, K = cfg.camera, cfg.map.max_keyframes
+    sf, nl = cfg.orb.scale_factor, cfg.orb.n_levels
+
+    def timed(name, fn):
+        if sections is None:
+            return fn()
+        _sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(device)
+        sections.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    seq = synthetic.SyntheticSequence(cam, n_frames=K, trajectory="orbit", radius=radius,
+                                      yaw_amp=yaw_amp, device=device)
+    extractor = ORBExtractor(cam, cfg.orb)
+    shapes, (h, w) = [], (cam.height, cam.width)
+    for lvl in range(nl):
+        if lvl >= KF_STORE_MIN_LEVEL:
+            shapes.append((h, w))
+        h, w = (h + 1) // 2, (w + 1) // 2
+    ms = M.init_map(K, cfg.map.max_points, cfg.orb.max_keypoints, tuple(shapes), device=device)
+    P, N = ms.P, ms.N
+    close = torch.tensor(4.0, device=device)
+
+    def associate(f, Tcw, ref):
+        q = ms.kf_mp[ref]
+        safe = torch.clamp(q, 0, P - 1).long()
+        res = matching.search_by_projection(
+            cam, Tcw, ms.pt_pos[safe], ms.pt_desc[safe], (q >= 0) & ms.pt_valid[safe],
+            ms.kf_octave[ref], f.uv_und, f.desc, f.valid, f.octave, radius_px=8.0,
+            th_desc=ham.TH_HIGH, scale_factor=sf)
+        kq = res.kp_to_query
+        return torch.where(kq >= 0, q[torch.clamp(kq, 0, N - 1).long()], torch.full_like(kq, -1))
+
+    for i in range(K):
+        fr = timed("frame", lambda: make_frame(extractor, *seq.frame(i)[1:]))
+        f = fr.features
+        Tcw = seq.poses[i].to(device)
+        assoc = (timed("association", lambda: associate(f, Tcw, i - 1)) if i > 0
+                 else torch.full((N,), -1, dtype=torch.int32, device=device))
+        ms = timed("insert", lambda: M.insert_keyframe(
+            ms, i, Tcw, f.uv, f.uv_und, f.octave, f.angle, f.desc, f.valid, fr.depth,
+            fr.uright, assoc, tuple(fr.pyramid[KF_STORE_MIN_LEVEL:]), i * 4, float(i), i - 1))
+        if i % 2 == 0:
+            ms = timed("spawn", lambda: spawn_points(cam, ms, i, close, scale_factor=sf,
+                                                     n_levels=nl, update_stats=False))
+    ms = timed("finalize", lambda: M.finalize_point_statistics(ms, sf, nl))
+    return seq, extractor, ms
+
+
+def relocalize_branch(cam, ms, fr, generator, scale_factor: float, n_levels: int):
+    """relocalize() on frame fr; returns (result, the branch that won:
+    "photometric", "epnp" or None). The photometric branch wins when any of
+    its verifications succeeds (relocalization.py `pick`)."""
+    from sdslam_tpu_torch.pipeline import relocalization as RL
+    from sdslam_tpu_torch.pipeline.tracking import KF_STORE_MIN_LEVEL
+
+    f = fr.features
+    with Spy(RL, "_verify_photometric") as photo:
+        rr = RL.relocalize(cam, ms, f.uv_und, f.desc, f.octave, f.valid, fr.uright, fr.pyramid,
+                           generator=generator, scale_factor=scale_factor, n_levels=n_levels,
+                           store_min_level=KF_STORE_MIN_LEVEL)
+    if not bool(rr.success):
+        return rr, None
+    won = any(bool(ok) and int(n) > 0 for ok, _, _, n in photo.results)
+    return rr, "photometric" if won else "epnp"
+
+
+def local_ba_window(cam, ms, slot: int, scale_factor: float, covis_min: int = 15):
+    """local_ba() at `slot`; returns (new map, {local_kfs and local_points:
+    the local set before the window's caps (24 cameras, 2048 points),
+    cameras: those with an edge in the window, optimized, points, edges,
+    whether the centre moved}) as the solver saw them."""
+    from sdslam_tpu_torch.mapping import map_state as M
+    from sdslam_tpu_torch.solvers import ba
+
+    inc = M.incidence_matrix(ms)
+    local = (M.covisibility(ms, inc=inc)[slot] >= covis_min) & ms.kf_valid
+    local[slot] = True
+    oldest = torch.argmin(torch.where(ms.kf_valid, ms.kf_frame_id, ms.kf_frame_id.max() + 1))
+    local[oldest] = False
+    local_pts = ((local.to(inc.dtype) @ inc) > 0) & ms.pt_valid
+    with Spy(ba, "_ba_core") as core:
+        out = ba.local_ba(cam, ms, slot, scale_factor=scale_factor, covis_min=covis_min)
+    (a, _), = core.calls
+    es, obs_ok, cam_act, pt_act = a[3], a[4], a[5], a[6]
+    return out, {"local_kfs": int(local.sum()), "local_points": int(local_pts.sum()),
+                 "cameras": int(torch.unique(es.cam_idx[obs_ok.T]).numel()),
+                 "optimized": int(cam_act.sum()), "points": int(pt_act.sum()),
+                 "edges": int(obs_ok.sum()),
+                 "centre_moved": bool((out.kf_Tcw[slot] != ms.kf_Tcw[slot]).any())}
+
+
+LARGE_QUERY = 77
+
+
+def phase_large(dev, n_kf: int = 256, max_points: int = 65536):
+    """The large-map regime at full width: build_large_map over a 256-frame
+    orbit fills every keyframe slot (640x480, 1024 keypoints, 65536
+    points); then the O(K) and O(P) passes over the full pool: incidence
+    and covisibility, relocalization of frame 77, the world-1 alignment
+    scan, local BA at slot 77 and at the newest keyframe, the slot the
+    tracker's keyframe pass runs it on. Returns {kernel: launches}."""
+    from sdslam_tpu_torch.features.frame import make_frame
+    from sdslam_tpu_torch.mapping import map_state as M
+    from sdslam_tpu_torch.parallel import dist_align
+    from sdslam_tpu_torch.pipeline.tracking import KF_STORE_MIN_LEVEL
+
+    main = main_config()
+    cfg = large_map_config(main.camera, main.orb.max_keypoints, main.orb.n_levels, n_kf,
+                           max_points)
+    cam, sf, nl = cfg.camera, cfg.orb.scale_factor, cfg.orb.n_levels
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    sections = {}
+    t0 = time.perf_counter()
+    seq, extractor, ms = build_large_map(cfg, dev, sections=sections)
+    build_s = time.perf_counter() - t0
+    n_valid, n_pt = int(ms.kf_valid.sum()), int(ms.pt_valid.sum())
+    n_obs = M.point_obs_count(ms)
+    multi = int((n_obs >= 2).sum())
+    covis_ms = median_ms(lambda: M.covisibility(ms, inc=M.incidence_matrix(ms)), reps=5,
+                         warmup=1)
+
+    q = LARGE_QUERY
+    fr = make_frame(extractor, *seq.frame(q)[1:])
+    _sync(dev)
+    t0 = time.perf_counter()
+    rr, branch = relocalize_branch(cam, ms, fr, torch.Generator(device=dev).manual_seed(SEED),
+                                   sf, nl)
+    reloc_ms = (time.perf_counter() - t0) * 1e3
+    reloc_err = _pose_err(rr.Tcw.cpu().numpy(), seq.poses[q].numpy())
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    _, errors = dist_align.distributed_align_scan(cam, ms, fr.pyramid, scale_factor=sf,
+                                                  n_levels=nl, store_min_level=KF_STORE_MIN_LEVEL)
+    argmin = int(torch.argmin(errors))
+    scan_ms = (time.perf_counter() - t0) * 1e3
+
+    # local BA at the query, and at the newest keyframe; both keep the
+    # reference's window: past 2048 local points the first 2048 by index,
+    # of which few have edges into the window (ROADMAP.md section 3), so
+    # the query's poses move by about 0.12 and are not gated
+    newest = int(torch.argmax(torch.where(ms.kf_valid, ms.kf_frame_id, -1)))
+    ba_runs = {}
+    for name, slot in (("query", q), ("newest", newest)):
+        _sync(dev)
+        t0 = time.perf_counter()
+        ms2, window = local_ba_window(cam, ms, slot, sf)
+        _sync(dev)
+        ba_runs[name] = {"slot": slot, "ms": (time.perf_counter() - t0) * 1e3, **window,
+                         "max_pose_change": float((ms2.kf_Tcw - ms.kf_Tcw).abs().max())}
+    launches = read_launches("large")
+    med = {k: statistics.median(v) for k, v in sections.items() if k != "finalize"}
+    emit("large", slots=n_kf, valid_slots=n_valid, points=n_pt, multi_observer_points=multi,
+         build_s=build_s, median_kf_ms=med,
+         finalize_point_statistics_ms=sections["finalize"][0],
+         incidence_covisibility_ms=covis_ms,
+         reloc={"ms": reloc_ms, "success": bool(rr.success), "branch": branch,
+                "best_kf": int(rr.best_kf), "trans_m": reloc_err[0], "rot_rad": reloc_err[1]},
+         scan={"ms": scan_ms, "argmin": argmin,
+               "finite_slots": int(torch.isfinite(errors).sum())},
+         local_ba=ba_runs,
+         max_memory_allocated_mb=torch.cuda.max_memory_allocated() / 2**20, launches=launches)
+    if n_valid != n_kf or not n_pt > 5000:
+        raise AssertionError(f"large: {n_valid} valid slots of {n_kf}, {n_pt} points")
+    if not (rr.success and reloc_err[0] < 0.02):
+        raise AssertionError(f"large: relocalization of frame {q}: {bool(rr.success)}, "
+                             f"{reloc_err[0]} m")
+    if abs(argmin - q) > 2:
+        raise AssertionError(f"large: the scan's argmin {argmin}, query {q}")
+    wq, wn = ba_runs["query"], ba_runs["newest"]
+    if not (wq["cameras"] >= 2 and wq["edges"] > 0 and wn["cameras"] >= 2
+            and wn["optimized"] >= 1 and wn["edges"] > 0 and wn["centre_moved"]
+            and wn["max_pose_change"] < 0.05):
+        raise AssertionError(f"large: local BA {ba_runs}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on the card")
@@ -2320,7 +2567,8 @@ def main():
     for name, fn in (("main", phase_main), ("reloc", phase_reloc), ("loop", phase_loop),
                      ("mono", phase_mono), ("fusion", phase_fusion), ("io", phase_io),
                      ("dist", phase_dist), ("pipelined", phase_pipelined),
-                     ("pattern", phase_pattern), ("viewer", phase_viewer)):
+                     ("pattern", phase_pattern), ("viewer", phase_viewer),
+                     ("large", phase_large)):
         t0 = time.perf_counter()
         by_path[name] = fn(dev)
         seconds[name] = time.perf_counter() - t0

@@ -169,15 +169,18 @@ def search_by_sim3(
 
 
 def search_brute_force(q_desc, q_valid, t_desc, t_valid, th_desc: int = ham.TH_LOW,
-                       ratio: float = 0.75) -> MatchResult:
-    """Mutual brute-force descriptor matching with a ratio test
-    (SearchByPoints, the BoW-free loop and relocalization matcher).
+                       ratio: Optional[float] = 0.75, mutual: bool = True) -> MatchResult:
+    """Brute-force descriptor matching (SearchByPoints, the BoW-free loop
+    and relocalization matcher): a ratio test unless `ratio` is None, and
+    the target's own best query must point back unless `mutual` is False.
     Returns the target -> query assignment."""
     mask = q_valid[:, None] & t_valid[None, :]
     dist = ham.masked_dist(q_desc, t_desc, mask)
     d1, j1, d2 = ham.best2(dist)
-    ok = q_valid & (d1 <= th_desc) & (d1.to(torch.float32) < ratio * d2.to(torch.float32))
-    # the target's own best query must point back (first minimum)
-    i1 = torch.argmin(dist, dim=0)
-    ok &= i1[j1] == torch.arange(q_desc.shape[0], device=dist.device)
+    ok = q_valid & (d1 <= th_desc)
+    if ratio is not None:
+        ok &= d1.to(torch.float32) < ratio * d2.to(torch.float32)
+    if mutual:  # first minimum on both sides
+        i1 = torch.argmin(dist, dim=0)
+        ok &= i1[j1] == torch.arange(q_desc.shape[0], device=dist.device)
     return MatchResult(*ham.resolve_to_targets(j1, d1, ok, t_desc.shape[0]))

@@ -11,8 +11,8 @@ ConsistencyState.
 
 The tests compare the port with the JAX package through them, and
 `SDSlamSystem.save_map` / `load_map` write and read the JAX package's npz
-layout with the map pair. Their `device` defaults to "cpu", where the
-tests run, unlike the port's entry points, which default to the card.
+layout with the map pair. Like the port's other entry points they build
+on the card unless `device` names another ("cpu" for the tests).
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from sdslam_tpu_torch._device import resolve
 from sdslam_tpu_torch.mapping.map_state import MapState
 from sdslam_tpu_torch.pipeline.loop_closing import ConsistencyState
 from sdslam_tpu_torch.pipeline.sensors import EKFState, IMUState
@@ -43,7 +44,8 @@ def _to_numpy(t: torch.Tensor, desc: bool = False) -> np.ndarray:
     return a.view(np.uint32) if desc else a
 
 
-def map_state_from_numpy(d: Mapping, device="cpu") -> MapState:
+def map_state_from_numpy(d: Mapping, device="cuda") -> MapState:
+    device = resolve(device)
     kw = {}
     for f in MapState._fields:
         if f == "kf_pyramid":
@@ -63,7 +65,8 @@ def map_state_to_numpy(ms: MapState) -> dict:
     return out
 
 
-def ekf_state_from_numpy(d: Mapping, device="cpu") -> EKFState:
+def ekf_state_from_numpy(d: Mapping, device="cuda") -> EKFState:
+    device = resolve(device)
     return EKFState(**{f: _to_torch(d[f], device) for f in EKFState._fields})
 
 
@@ -71,7 +74,8 @@ def ekf_state_to_numpy(s: EKFState) -> dict:
     return {f: _to_numpy(v) for f, v in s._asdict().items()}
 
 
-def imu_state_from_numpy(d: Mapping, device="cpu") -> IMUState:
+def imu_state_from_numpy(d: Mapping, device="cuda") -> IMUState:
+    device = resolve(device)
     return IMUState(**{f: _to_torch(d[f], device) for f in IMUState._fields})
 
 
@@ -83,9 +87,10 @@ _FILTERS = {"ekf": (ekf_state_from_numpy, ekf_state_to_numpy),
             "imu": (imu_state_from_numpy, imu_state_to_numpy)}
 
 
-def device_state_from_numpy(d: Mapping, device="cpu") -> DeviceState:
+def device_state_from_numpy(d: Mapping, device="cuda") -> DeviceState:
     """d: the JAX DeviceState's fields; d["ekf"] and d["imu"] are mappings
     of the filters' fields (or objects with _asdict())."""
+    device = resolve(device)
     kw = {}
     for f in DeviceState._fields:
         if f in _FILTERS:
@@ -101,8 +106,9 @@ def device_state_to_numpy(s: DeviceState) -> dict:
             for f, v in s._asdict().items()}
 
 
-def consistency_state_from_numpy(d: Mapping, device="cpu") -> ConsistencyState:
+def consistency_state_from_numpy(d: Mapping, device="cuda") -> ConsistencyState:
     """d: the JAX ConsistencyState's fields (mask [K,K] bool, count [K])."""
+    device = resolve(device)
     if hasattr(d, "_asdict"):
         d = d._asdict()
     return ConsistencyState(**{f: _to_torch(d[f], device) for f in ConsistencyState._fields})

@@ -164,23 +164,23 @@ def observation_table(ms: MapState):
     return torch.where(ok, ms.kf_mp, torch.full_like(ms.kf_mp, -1))
 
 
-def incidence_matrix(ms: MapState):
-    """[K,P] float32 0/1 incidence: KF k observes point p."""
+def incidence_matrix(ms: MapState, dtype=torch.bfloat16):
+    """[K,P] 0/1 incidence: KF k observes point p."""
     obs = observation_table(ms)
     K, N = obs.shape
     P = ms.P
     rows = torch.arange(K, device=obs.device)[:, None].expand(K, N)
     cols = torch.where(obs >= 0, obs, P).long()
-    inc = torch.zeros((K, P + 1), device=obs.device)
+    inc = torch.zeros((K, P + 1), dtype=dtype, device=obs.device)
     inc = inc.index_put((rows.reshape(-1), cols.reshape(-1)),
-                        torch.ones(K * N, device=obs.device))
+                        torch.ones(K * N, dtype=dtype, device=obs.device))
     return inc[:, :P].contiguous()
 
 
 def covisibility(ms: MapState, inc=None):
-    """[K,K] int32 shared-observation counts (diagonal zeroed)."""
-    if inc is None:
-        inc = incidence_matrix(ms)
+    """[K,K] int32 shared-observation counts (diagonal zeroed); counted in
+    float32 whatever the incidence's dtype."""
+    inc = (incidence_matrix(ms) if inc is None else inc).float()
     counts = (inc @ inc.T).to(torch.int32)
     counts = counts * (1 - torch.eye(ms.K, dtype=torch.int32, device=inc.device))
     mask = ms.kf_valid
@@ -189,7 +189,7 @@ def covisibility(ms: MapState, inc=None):
 
 def point_obs_count_from_inc(ms: MapState, inc):
     """[P] observing-keyframe counts from a precomputed incidence."""
-    return inc.sum(0).to(torch.int32) * ms.pt_valid
+    return inc.sum(0, dtype=torch.float32).to(torch.int32) * ms.pt_valid
 
 
 def point_obs_count(ms: MapState):

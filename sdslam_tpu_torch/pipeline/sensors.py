@@ -28,6 +28,7 @@ import numpy as np
 import torch
 from scipy.spatial.transform import Rotation as _R
 
+from sdslam_tpu_torch._device import resolve
 from sdslam_tpu_torch._util import as_device
 from sdslam_tpu_torch.geometry import lie
 
@@ -46,9 +47,10 @@ class EKFState(NamedTuple):
     has_pose: torch.Tensor  # bool: last_pose meaningful
 
 
-def ekf_init(T0=None, device=None) -> EKFState:
-    if T0 is not None:
-        device = T0.device
+def ekf_init(T0=None, device="cuda") -> EKFState:
+    """A fresh filter at T0 (on T0's device), or at the identity on
+    `device` when no pose is given."""
+    device = T0.device if T0 is not None else resolve(device)
     return EKFState(
         x=torch.zeros(6, device=device),
         P=torch.eye(6, device=device) * 1e2,
@@ -123,7 +125,8 @@ def _diag_blocks(blocks, device):
                                  for n, v in blocks]))
 
 
-def imu_init(device=None) -> IMUState:
+def imu_init(device="cuda") -> IMUState:
+    device = resolve(device)
     P = _diag_blocks(((3, COV_X2), (4, COV_Q2), (3, COV_V2), (3, COV_W2), (3, COV_A2)), device)
     X = _diag_blocks(((16, 1.0),), device)[3]  # the identity quaternion, fills only
     return IMUState(X=X, P=P, gravity=torch.zeros(3, device=device),

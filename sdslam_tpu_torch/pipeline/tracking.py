@@ -139,6 +139,16 @@ def _track_core(cam: CameraModel, ms: M.MapState, uv_und, desc, octave, kp_valid
                        opt2.n_inliers, v1.sum(), ares.error)
 
 
+def track_step(cam: CameraModel, ms: M.MapState, *args, **kwargs):
+    """The JAX module's jitted entry point over `_track_core` (no trace to
+    cache here): its TrackOutput and the packed [19] readback vector
+    (PACK_POSE, PACK_INLIERS, PACK_MATCHES, PACK_ALIGN_ERR)."""
+    out = _track_core(cam, ms, *args, **kwargs)
+    packed = torch.cat([out.Tcw.reshape(16), torch.stack([
+        out.n_inliers.to(torch.float32), out.n_matches.to(torch.float32), out.align_error])])
+    return out, packed
+
+
 def keyframe_step(cam: CameraModel, ms: M.MapState, slot, Tcw, uv, uv_und, octave, angle,
                   desc, kp_valid, depth, uright, assoc, stored_pyr, frame_id, timestamp, parent,
                   scale_factor: float = 2.0, n_levels: int = 5) -> M.MapState:
@@ -199,13 +209,16 @@ def _kf_core(cam: CameraModel, ms: M.MapState, Tcw, uv, uv_und, octave, angle, d
     # redundancy culling only once the pool is half full (the JAX lax.cond)
     if sync(ms.kf_valid.sum() > ms.K // 2):
         ms = LM.cull_keyframes(ms, slot, obs_lists=obs_lists, rows_mask=rows, covis=covis)
-    touched = (rows.to(torch.float32) @ inc) > 0
+    touched = (rows.to(inc.dtype) @ inc) > 0
     row_now = take(ms.kf_mp, slot)
     touched = scatter_set(touched, torch.where(row_now >= 0, row_now, ms.P), True)
     touched = touched | (ms.pt_first_kf == new_kf_id)
     ms = M.finalize_point_statistics_local(ms, rows, scale_factor, n_levels,
                                            obs_lists=obs_lists, touched=touched)
     return ms, slot, take(ms.kf_mp, slot), take(ms.kf_Tcw, slot)
+
+
+kf_pipeline = _kf_core  # the JAX module's jitted entry point, as track_step
 
 
 def pack_frame(img_u8: np.ndarray, depth_u16: np.ndarray, timestamp: float) -> np.ndarray:
@@ -518,11 +531,13 @@ class RGBDTracker:
         """Gyro-only variant of inject_imu."""
         self.inject_imu(w)
 
-    def reset_reference(self, slot: int):
+    def reset_reference(self, slot: int, Tcw=None):
         """Re-anchor tracking after an external map update (loop closure):
-        new reference keyframe, motion filter restarted from its pose."""
+        new reference keyframe, motion filter restarted from `Tcw` (a 4x4
+        array or tensor), or from the keyframe's pose when none is given."""
         self.flush()
-        T = self.ms.kf_Tcw[int(slot)]
+        T = (self.ms.kf_Tcw[int(slot)] if Tcw is None
+             else torch.as_tensor(Tcw, dtype=torch.float32, device=self.device))
         self.st.last_kf_slot = int(slot)
         self.st.T_last = T.cpu().numpy()
         if self.dst is not None:

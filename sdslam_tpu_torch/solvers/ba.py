@@ -268,8 +268,8 @@ def local_ba(cam: CameraModel, ms: M.MapState, center_kf, scale_factor: float = 
     local = local.index_fill(0, oldest.reshape(1), False)
     obs = M.observation_table(ms)
     if inc is not None:
-        pt_local = ((local.to(torch.float32) @ inc) > 0) & ms.pt_valid
-        frontier = ((inc @ pt_local.to(torch.float32)) > 0) & ms.kf_valid & ~local
+        pt_local = ((local.to(inc.dtype) @ inc) > 0) & ms.pt_valid
+        frontier = ((inc @ pt_local.to(inc.dtype)) > 0) & ms.kf_valid & ~local
     else:
         contrib = torch.where(local[:, None], obs, torch.full_like(obs, -1))
         pt_local = scatter_set(torch.zeros(P, dtype=torch.bool, device=dev),
@@ -326,9 +326,13 @@ def local_ba(cam: CameraModel, ms: M.MapState, center_kf, scale_factor: float = 
     return ms._replace(kf_Tcw=kf_Tcw, pt_pos=pt_pos, kf_mp=kf_mp)
 
 
-def apply_ba_result(ms: M.MapState, res: BAResult, obs_kf, obs_kp) -> M.MapState:
+def apply_ba_result(ms: M.MapState, res: BAResult, obs_kf=None, obs_kp=None,
+                    max_obs: int = 16) -> M.MapState:
     """Write a BA result back into the map and erase the observations it
-    flagged as outliers (obs_kf, obs_kp: the observation lists BA ran on)."""
+    flagged as outliers (obs_kf, obs_kp: the observation lists BA ran on;
+    built from the map with `max_obs` when not given)."""
+    if obs_kf is None:
+        obs_kf, obs_kp = M.build_obs_lists(ms, max_obs)
     bad = (obs_kf >= 0) & ~res.obs_inlier
     kf_mp = scatter_set2(ms.kf_mp, torch.where(bad, obs_kf, ms.K),
                          torch.clamp(obs_kp, 0, ms.N - 1), -1)

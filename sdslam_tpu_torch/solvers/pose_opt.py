@@ -12,6 +12,9 @@ from sdslam_tpu_torch._util import as_device
 from sdslam_tpu_torch.geometry import lie
 from sdslam_tpu_torch.geometry.camera import CameraModel
 from sdslam_tpu_torch.kernels import pose_kernel as pk
+from sdslam_tpu_torch.solvers.ba_const import (  # noqa: F401  (the JAX module's names)
+    CHI2_MONO, CHI2_STEREO, HUBER_MONO, HUBER_STEREO,
+)
 
 
 class PoseOptResult(NamedTuple):

@@ -11,10 +11,13 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import os
 import time
 from collections import defaultdict
 from typing import Dict, List, Optional
+
+log = logging.getLogger("sdslam_tpu_torch")
 
 
 class Timer:

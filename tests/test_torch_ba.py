@@ -46,7 +46,7 @@ def _terms_inputs(seed, stereo, m_obs=M_OBS):
 
 
 def _port_terms(ms, obs_kf, obs_kp, cam_active, lam):
-    tms = interop.map_state_from_numpy(_numpy_map(ms))
+    tms = interop.map_state_from_numpy(_numpy_map(ms), device="cpu")
     es = tba._prep_edges(torch.from_numpy(np.asarray(obs_kf)), torch.from_numpy(
         np.asarray(obs_kp)), tms.kf_uv_und, tms.kf_uright, tms.kf_octave, 2.0, tms.K)
     obs_ok = torch.from_numpy(np.asarray(obs_kf) >= 0)
@@ -97,7 +97,7 @@ def test_edge_schur_plain_output_layout():
     """The plain K3's Ze channels fold into Zt exactly as the kernel's
     in-kernel scatter does (row j*6K + k*6 + i)."""
     ms, obs_kf, obs_kp, cam_active = _terms_inputs(6, True)
-    tms = interop.map_state_from_numpy(_numpy_map(ms))
+    tms = interop.map_state_from_numpy(_numpy_map(ms), device="cpu")
     es = tba._prep_edges(torch.from_numpy(np.asarray(obs_kf)), torch.from_numpy(
         np.asarray(obs_kp)), tms.kf_uv_und, tms.kf_uright, tms.kf_octave, 2.0, tms.K)
     K = tms.K
@@ -123,7 +123,7 @@ def test_local_ba_on_carried_map():
     ms, T_gt, X_gt, n_kf, n_pt = make_ba_problem(
         np.random.default_rng(11), noise_px=0.2, pose_noise=0.01, pt_noise=0.01, stereo=True)
     a = jba.local_ba(JC, ms, center_kf=5, covis_min=15)
-    tms = interop.map_state_from_numpy(_numpy_map(ms))
+    tms = interop.map_state_from_numpy(_numpy_map(ms), device="cpu")
     b = tba.local_ba(TC, tms, center_kf=5, covis_min=15)
     # 8 LM iterations of float32 normal equations: poses agree to ~1e-5
     np.testing.assert_allclose(np.asarray(a.kf_Tcw), b.kf_Tcw.numpy(), atol=1e-4)
@@ -136,13 +136,58 @@ def test_local_ba_on_carried_map():
     assert float(err.abs().max()) < 5e-3
 
 
+def test_local_ba_with_default_incidence_matches_jax():
+    """local_ba given the incidence at its default dtype (bfloat16 in both
+    packages), as code written against the JAX API passes it."""
+    ms, *_ = make_ba_problem(np.random.default_rng(11), noise_px=0.2, pose_noise=0.01,
+                             pt_noise=0.01, stereo=True)
+    a = jba.local_ba(JC, ms, center_kf=5, covis_min=15, inc=JM.incidence_matrix(ms))
+    tms = interop.map_state_from_numpy(_numpy_map(ms), device="cpu")
+    inc = TM.incidence_matrix(tms)
+    assert inc.dtype == torch.bfloat16
+    b = tba.local_ba(TC, tms, center_kf=5, covis_min=15, inc=inc)
+    np.testing.assert_allclose(np.asarray(a.kf_Tcw), b.kf_Tcw.numpy(), atol=1e-4)
+    np.testing.assert_allclose(np.asarray(a.pt_pos), b.pt_pos.numpy(), atol=1e-4)
+    np.testing.assert_array_equal(np.asarray(a.kf_mp), b.kf_mp.numpy())
+    assert np.abs(b.kf_Tcw.numpy() - np.asarray(ms.kf_Tcw)).max() > 1e-3
+
 def test_bundle_adjust_matches_xla():
     ms, T_gt, *_ = make_ba_problem(np.random.default_rng(2), noise_px=0.3, stereo=True)
     cam_active = np.asarray(ms.kf_valid).copy()
     cam_active[0] = False
     a = jba.bundle_adjust(JC, ms, jnp.asarray(cam_active), ms.pt_valid)
-    tms = interop.map_state_from_numpy(_numpy_map(ms))
+    tms = interop.map_state_from_numpy(_numpy_map(ms), device="cpu")
     b = tba.bundle_adjust(TC, tms, torch.from_numpy(cam_active), tms.pt_valid)
     np.testing.assert_allclose(np.asarray(a.kf_Tcw), b.kf_Tcw.numpy(), atol=1e-4)
     np.testing.assert_array_equal(np.asarray(a.obs_inlier), b.obs_inlier.numpy())
     assert TM.covisibility(tms).max() > 15
+
+
+@pytest.mark.parametrize("lists", ["given", "built"])
+def test_apply_ba_result_matches_jax(lists):
+    """apply_ba_result with the observation lists BA ran on, and without
+    them (built from the map with max_obs, JAX's default 16): the same
+    result written back and the same observations erased, on one BA
+    result with every 7th observation flagged an outlier."""
+    ms, *_ = make_ba_problem(np.random.default_rng(2), noise_px=0.3, stereo=True)
+    obs_kf, obs_kp = JM.build_obs_lists(ms, 16)
+    cam_active = np.asarray(ms.kf_valid).copy()
+    cam_active[0] = False
+    a = jba.bundle_adjust(JC, ms, jnp.asarray(cam_active), ms.pt_valid)
+    inl = np.asarray(a.obs_inlier).copy()
+    inl[:, ::7] = False
+    a = a._replace(obs_inlier=jnp.asarray(inl))
+    b = tba.BAResult(*(torch.from_numpy(np.array(v)) for v in a))
+    tms = interop.map_state_from_numpy(_numpy_map(ms), device="cpu")
+    if lists == "given":
+        ja = jba.apply_ba_result(ms, a, obs_kf, obs_kp)
+        ta = tba.apply_ba_result(tms, b, torch.from_numpy(np.array(obs_kf)),
+                                 torch.from_numpy(np.array(obs_kp)))
+    else:
+        ja = jba.apply_ba_result(ms, a)
+        ta = tba.apply_ba_result(tms, b)
+    np.testing.assert_array_equal(np.asarray(ja.kf_mp), ta.kf_mp.numpy())
+    np.testing.assert_array_equal(np.asarray(ja.kf_Tcw), ta.kf_Tcw.numpy())
+    np.testing.assert_array_equal(np.asarray(ja.pt_pos), ta.pt_pos.numpy())
+    erased = (np.asarray(ms.kf_mp) >= 0).sum() - (ta.kf_mp.numpy() >= 0).sum()
+    assert erased > 10

@@ -1,13 +1,21 @@
 """The public names the JAX modules export, in the port: each against the
 JAX function on the same seeded inputs (np.random.default_rng per case),
 including the non-dyadic pyramid and the ORB extractor at scale factor 1.2.
+A comparison of the two trees' syntax keeps every public name and every
+parameter of the JAX API present in the port, apart from the design
+differences listed with their reasons.
 """
+
+import ast
+import logging
+import pathlib
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from sdslam_tpu.features import matching as jmatching
 from sdslam_tpu.features.frame import ORBExtractor as JExtractor
 from sdslam_tpu.geometry import camera as jcam
 from sdslam_tpu.geometry import lie as jlie
@@ -19,7 +27,10 @@ from sdslam_tpu.ops import orb as jorb
 from sdslam_tpu.ops import pyramid as jpyr
 from sdslam_tpu.ops import sample as jsample
 from sdslam_tpu.pipeline import sensors as jsensors
+from sdslam_tpu.solvers import pose_opt as jpose
+from sdslam_tpu.utils import profiling as jprof
 from sdslam_tpu.utils.config import ORBConfig as JORB
+from sdslam_tpu_torch.features import matching as tmatching
 from sdslam_tpu_torch.features.frame import ORBExtractor as TExtractor
 from sdslam_tpu_torch.geometry import camera as tcam
 from sdslam_tpu_torch.geometry import lie as tlie
@@ -30,6 +41,8 @@ from sdslam_tpu_torch.ops import orb as torb
 from sdslam_tpu_torch.ops import pyramid as tpyr
 from sdslam_tpu_torch.ops import sample as tsample
 from sdslam_tpu_torch.pipeline import sensors as tsensors
+from sdslam_tpu_torch.solvers import pose_opt as tpose
+from sdslam_tpu_torch.utils import profiling as tprof
 from sdslam_tpu_torch.utils.config import ORBConfig as TORB
 
 torch.set_num_threads(2)
@@ -181,3 +194,165 @@ def test_constant_velocity_ekf():
         assert ja.update(T, 1 / 30) == tb.update(T, 1 / 30)
         np.testing.assert_allclose(ja.x, tb.x, atol=1e-9)
         np.testing.assert_allclose(ja.P, tb.P, atol=1e-9)
+
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+JPKG, TPKG = ROOT / "sdslam_tpu", ROOT / "sdslam_tpu_torch"
+
+# (module, function or Class.method, parameter) of the JAX API the port
+# leaves out by design, each with its reason
+PARAM_ALLOWED = {
+    **{("ops/sample.py", f, "precision"): "TPU-only matmul precision switch" for f in (
+        "sample_nearest", "sample_bilinear", "sample_bilinear_patch",
+        "sample_bilinear_with_grad")},
+    ("ops/orb.py", "extract_patches", "precision"): "TPU-only matmul precision switch",
+    ("solvers/image_align.py", "align", "fused"):
+        "TPU-only Pallas kernel switch; the port takes its kernel for tensors on the card",
+    ("solvers/pose_opt.py", "optimize_pose", "fused"): "TPU-only Pallas kernel switch, as align's",
+    **{(m, f, "key"): "JAX PRNG key; the port draws from a seeded torch generator" for m, f in (
+        ("pipeline/loop_closing.py", "verify_loop_sim3"),
+        ("pipeline/relocalization.py", "relocalize"), ("solvers/epnp.py", "ransac_epnp"),
+        ("solvers/sim3_solver.py", "ransac_sim3"),
+        ("solvers/initializer.py", "initialize_two_view"))},
+    ("solvers/initializer.py", "initialize_two_view", "n_iters"):
+        "the port takes the RANSAC draws as `samples`, whose length is the iteration count",
+    **{(m, f, "mesh"): "a jax.sharding.Mesh; the port's solvers take a process group" for m, f in (
+        ("parallel/dist_align.py", "distributed_align_scan"),
+        ("parallel/dist_ba.py", "make_distributed_gn_step"),
+        ("parallel/dist_ba.py", "distributed_bundle_adjust"),
+        ("parallel/dist_pose_graph.py", "distributed_pose_graph"),
+        ("parallel/multihost.py", "global_put"))},
+    ("parallel/multihost.py", "global_mesh", "axis"): "a mesh axis name; the port's group has none",
+    **{("parallel/multihost.py", "init_multihost", a): "a jax.distributed.initialize argument; "
+       "the port's process group takes its address, world size and rank" for a in (
+           "coordinator_address", "num_processes", "process_id", "local_device_count",
+           "platform")},
+    ("parallel/pipelined.py", "PipelinedRGBDTracker.__init__", "track_device"):
+        "the port's `device`",
+}
+
+
+def _public(name: str) -> bool:
+    return not name.startswith("_") or name in ("__init__", "__call__")
+
+
+def _api(path: pathlib.Path, with_imports: bool):
+    """(public names, {function or Class.method: parameter names}) of a
+    module; with_imports counts names a module re-exports by import."""
+    names, funcs = set(), {}
+
+    def params(fn):
+        a = fn.args
+        return [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            if _public(node.name):
+                names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            for t in node.targets if isinstance(node, ast.Assign) else [node.target]:
+                names |= {n.id for n in ast.walk(t) if isinstance(n, ast.Name) and _public(n.id)}
+        elif with_imports and isinstance(node, (ast.Import, ast.ImportFrom)):
+            names |= {(a.asname or a.name).split(".")[0] for a in node.names}
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)) and _public(node.name):
+            funcs[node.name] = params(node)
+        if isinstance(node, ast.ClassDef) and _public(node.name):
+            for m in node.body:
+                if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef)) and _public(m.name):
+                    funcs[f"{node.name}.{m.name}"] = params(m)
+    return names, funcs
+
+
+def test_api_covers_jax_modules():
+    """Every module pair outside ops/pallas/: each public name of the JAX
+    module exists in the port's, and each parameter of a public JAX
+    function or method in the port's counterpart, or stands in
+    PARAM_ALLOWED."""
+    missing, seen = [], set()
+    pairs = [p for p in sorted(JPKG.rglob("*.py"))
+             if p.relative_to(JPKG).parts[:2] != ("ops", "pallas")]
+    for jp in pairs:
+        rel = jp.relative_to(JPKG).as_posix()
+        tp = TPKG / rel
+        if not tp.exists():
+            missing.append(f"module {rel}")
+            continue
+        jn, jf = _api(jp, with_imports=False)
+        tn, tf = _api(tp, with_imports=True)
+        missing += [f"{rel}: {n}" for n in sorted(jn - tn)]
+        for fn, ps in jf.items():
+            for prm in ps:
+                if fn not in tf or prm in tf[fn] or prm in ("self", "cls"):
+                    continue
+                if (rel, fn, prm) in PARAM_ALLOWED:
+                    seen.add((rel, fn, prm))
+                else:
+                    missing.append(f"{rel}: {fn}({prm}=)")
+    assert len(pairs) > 40
+    assert not missing, missing
+    # the allow-list holds only differences that exist
+    assert seen == set(PARAM_ALLOWED), sorted(set(PARAM_ALLOWED) - seen)
+
+
+def test_pose_opt_constants_and_log():
+    for k in ("CHI2_MONO", "CHI2_STEREO", "HUBER_MONO", "HUBER_STEREO"):
+        assert getattr(tpose, k) == getattr(jpose, k), k
+    assert isinstance(tprof.log, logging.Logger) and isinstance(jprof.log, logging.Logger)
+    assert tprof.log.name == "sdslam_tpu_torch" and jprof.log.name == "sdslam_tpu"
+
+
+def _brute_force_descs(rng):
+    """Targets [96] and queries [80] (uint32 [.,8]) where each gate of
+    search_brute_force decides some matches: queries 0-39 are noisy copies
+    of targets 0-39; for k < 8, query 40+k (B) lies 5 bits from target
+    40+k (T) and from its near twin 48+k, so it fails the ratio test, and
+    query 48+k (A) lies 8 bits from T and passes it, but T's own best is
+    B; query 56+k (D) lies 2 bits from target 56+k (V) and 4 from 64+k (U),
+    query 64+k (C) 6 bits from U, whose own best is D; 72-79 are random."""
+    t = rng.integers(0, 2**32, size=(96, 8), dtype=np.uint64).astype(np.uint32)
+
+    def flip(d, bits):
+        d = d.copy()
+        for b in bits:
+            d[b // 32] ^= np.uint32(1 << (b % 32))
+        return d
+
+    q = rng.integers(0, 2**32, size=(80, 8), dtype=np.uint64).astype(np.uint32)
+    for i in range(40):
+        q[i] = flip(t[i], rng.permutation(256)[:rng.integers(0, 13)])
+    for k in range(8):
+        bits = rng.permutation(256)
+        t[48 + k] = flip(t[40 + k], bits[:10])
+        q[40 + k] = flip(t[40 + k], bits[:5])
+        q[48 + k] = flip(t[40 + k], bits[10:18])
+        t[64 + k] = flip(t[56 + k], bits[20:26])
+        q[56 + k] = flip(t[56 + k], bits[20:22])
+        q[64 + k] = flip(t[64 + k], bits[30:36])
+    return q, t
+
+
+@pytest.mark.parametrize("ratio", [0.75, None])
+@pytest.mark.parametrize("mutual", [True, False])
+def test_search_brute_force_options(ratio, mutual):
+    """`ratio=None` skips the ratio test, `mutual=False` the back-check:
+    the same target -> query assignment as JAX, and the matches of the
+    constructed cases as each combination of the gates decides them."""
+    rng = np.random.default_rng(6)
+    q, t = _brute_force_descs(rng)
+    qv, tv = np.ones(80, bool), np.ones(96, bool)
+    qv[79], tv[95] = False, False
+    kw = dict(th_desc=50, ratio=ratio, mutual=mutual)
+    a = jmatching.search_brute_force(jnp.asarray(q), jnp.asarray(qv), jnp.asarray(t),
+                                     jnp.asarray(tv), **kw)
+    b = tmatching.search_brute_force(torch.from_numpy(q.view(np.int32)), torch.from_numpy(qv),
+                                     torch.from_numpy(t.view(np.int32)), torch.from_numpy(tv), **kw)
+    np.testing.assert_array_equal(np.asarray(a.kp_to_query), b.kp_to_query.numpy())
+    np.testing.assert_array_equal(np.asarray(a.kp_dist), b.kp_dist.numpy())
+    m = b.kp_to_query.numpy()
+    np.testing.assert_array_equal(m[:40], np.arange(40))
+    k = np.arange(8)
+    want_T = {(0.75, True): -1, (0.75, False): 48 + k, (None, True): 40 + k, (None, False): 40 + k}
+    want_U = {(0.75, True): -1, (0.75, False): 64 + k, (None, True): -1, (None, False): 64 + k}
+    np.testing.assert_array_equal(m[40:48], np.broadcast_to(want_T[ratio, mutual], 8))
+    np.testing.assert_array_equal(m[64:72], np.broadcast_to(want_U[ratio, mutual], 8))
+    np.testing.assert_array_equal(m[56:64], 56 + k)  # D -> V under every gate

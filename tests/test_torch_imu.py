@@ -79,7 +79,7 @@ def test_device_filter_constant_rotation(gate):
     """imu_predict / imu_update on the same stream, float32 on both sides;
     with `skip_odd` every other update is masked off (ok = False), the
     tracker's frames without an IMU sample."""
-    sj, st = js.imu_init(), ts.imu_init()
+    sj, st = js.imu_init(), ts.imu_init(device="cpu")
     for f in ("X", "P", "gravity"):
         np.testing.assert_array_equal(getattr(st, f).numpy(), np.asarray(getattr(sj, f)))
     for k, (T, w, g, dt) in enumerate(_rotation_stream()):

@@ -146,7 +146,7 @@ def test_scripted_sequence(scripted, step):
 def test_derived_structures(scripted):
     _, jms, tms = next(s for s in scripted if s[0] == "replace")
     inc_j = np.asarray(JM.incidence_matrix(jms)).astype(np.float32)
-    inc_t = TM.incidence_matrix(tms)
+    inc_t = TM.incidence_matrix(tms).float()  # bfloat16 by default, as JAX's
     np.testing.assert_array_equal(inc_j, inc_t.numpy())
     np.testing.assert_array_equal(np.asarray(JM.covisibility(jms)), TM.covisibility(tms).numpy())
     assert int(TM.covisibility(tms).max()) > 5  # keyframes really share points
@@ -163,10 +163,26 @@ def test_derived_structures(scripted):
         TM.allocate_slots(_t(mask), _t(want)).numpy())
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_incidence_matrix_dtypes(scripted, dtype):
+    """incidence_matrix in either dtype, JAX's default bfloat16 included,
+    and covisibility from each (counted in float32 in both packages)."""
+    _, jms, tms = next(s for s in scripted if s[0] == "replace")
+    inc_j = JM.incidence_matrix(jms, dtype=getattr(jnp, dtype))
+    inc_t = TM.incidence_matrix(tms, dtype=getattr(torch, dtype))
+    assert inc_t.dtype == getattr(torch, dtype) and str(inc_j.dtype) == dtype
+    assert tuple(inc_t.shape) == (K, P) and int(inc_t.float().sum()) > 50
+    np.testing.assert_array_equal(np.asarray(inc_j).astype(np.float32), inc_t.float().numpy())
+    np.testing.assert_array_equal(np.asarray(JM.covisibility(jms, inc=inc_j)),
+                                  TM.covisibility(tms, inc=inc_t).numpy())
+    np.testing.assert_array_equal(np.asarray(JM.point_obs_count(jms)),
+                                  TM.point_obs_count_from_inc(tms, inc_t).numpy())
+
+
 def test_interop_round_trip(scripted):
     _, jms, _ = scripted[-1]
     d = {k: (v if k == "kf_pyramid" else np.asarray(v)) for k, v in jms._asdict().items()}
-    tms = interop.map_state_from_numpy(d)
+    tms = interop.map_state_from_numpy(d, device="cpu")
     assert_same_map(jms, tms)
     back = interop.map_state_to_numpy(tms)
     assert back["kf_desc"].dtype == np.uint32

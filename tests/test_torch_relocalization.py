@@ -76,7 +76,7 @@ def build_jax_map(n_track: int = 12):
 
 def carry(ms_jax):
     """The port's MapState holding the JAX map's values."""
-    return interop.map_state_from_numpy(np_tree(ms_jax))
+    return interop.map_state_from_numpy(np_tree(ms_jax), device="cpu")
 
 
 def frame_inputs(seq, i):

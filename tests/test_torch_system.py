@@ -21,6 +21,7 @@ from sdslam_tpu_torch import interop
 from sdslam_tpu_torch import system as tsystem
 from sdslam_tpu_torch.io import synthetic as tsyn
 from sdslam_tpu_torch.mapping import map_state as TM
+from sdslam_tpu_torch.pipeline import sensors as tsensors
 from sdslam_tpu_torch.pipeline.tracking import MonoTracker, RGBDTracker
 from sdslam_tpu_torch.utils import metrics
 from test_torch_relocalization import JCAM, ORBIT, TCAM, jax_cfg, np_tree, port_cfg
@@ -47,7 +48,7 @@ def facades():
 def port_holding(jmap):
     """A fresh port facade whose map is the JAX map's values."""
     sysm = tsystem.SDSlamSystem(port_cfg(), sensor=tsystem.RGBD, device="cpu")
-    sysm.tracker.ms = interop.map_state_from_numpy(jmap)
+    sysm.tracker.ms = interop.map_state_from_numpy(jmap, device="cpu")
     return sysm
 
 
@@ -89,7 +90,8 @@ def test_default_sensor_is_monocular():
 
 
 @pytest.mark.parametrize("entry", ["RGBDTracker", "SDSlamSystem", "init_map",
-                                   "SyntheticSequence"])
+                                   "SyntheticSequence", "map_state_from_numpy", "ekf_init",
+                                   "imu_init"])
 def test_default_device_needs_cuda(entry, monkeypatch):
     """On a machine without CUDA, an entry point called without a device
     raises instead of running on the CPU."""
@@ -99,6 +101,10 @@ def test_default_device_needs_cuda(entry, monkeypatch):
         "SDSlamSystem": lambda: tsystem.SDSlamSystem(port_cfg()),
         "init_map": lambda: TM.init_map(4, 16, 8, ((12, 16),)),
         "SyntheticSequence": lambda: tsyn.SyntheticSequence(TCAM, n_frames=2),
+        "map_state_from_numpy": lambda: interop.map_state_from_numpy(
+            interop.map_state_to_numpy(TM.init_map(4, 16, 8, ((12, 16),), device="cpu"))),
+        "ekf_init": lambda: tsensors.ekf_init(),
+        "imu_init": lambda: tsensors.imu_init(),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[entry]()
@@ -132,7 +138,7 @@ def test_npz_map_across_packages(facades, tmp_path):
 
     fresh = tsystem.SDSlamSystem(port_cfg(), sensor=tsystem.RGBD, device="cpu")
     fresh.load_map(pj)
-    ref = interop.map_state_from_numpy(fields)
+    ref = interop.map_state_from_numpy(fields, device="cpu")
     for name, got, want in zip(ref._fields, fresh.tracker.ms, ref):
         for g, w in zip(got, want) if name == "kf_pyramid" else ((got, want),):
             assert g.dtype == w.dtype and torch.equal(g, w), name

@@ -6,7 +6,9 @@ version on the CPU.
   * one step on state carried across from the JAX tracker;
   * end to end on the 16-frame orbit and forward sequences, against the
     odometry gates and against the JAX trajectory;
-  * track_batch against per-frame track.
+  * track_batch against per-frame track;
+  * the module's entry points track_step and kf_pipeline on the carried
+    state, and reset_reference with and without a pose.
 """
 
 import numpy as np
@@ -14,6 +16,7 @@ import pytest
 import torch
 
 from sdslam_tpu.io import synthetic as jsyn
+from sdslam_tpu.pipeline import tracking as jt
 from sdslam_tpu.pipeline.tracking import RGBDTracker as JTracker
 from sdslam_tpu_torch import interop
 from sdslam_tpu_torch.geometry.camera import CameraModel as TCam
@@ -28,6 +31,7 @@ torch.set_num_threads(2)
 TCAM = TCam(*JCAM)
 N_FRAMES = 16
 CARRY_AT = 6  # the JAX tracker runs frames 0..5; the port steps frame 6
+KF_AT = 7  # the first keyframe after CARRY_AT on the orbit
 SEQS = {"orbit": dict(radius=0.06, yaw_amp=0.04), "forward": dict(step=0.01)}
 
 
@@ -67,23 +71,39 @@ def _np_tree(x):
 
 @pytest.fixture(scope="module")
 def jax_runs():
-    """JAX trajectories of both sequences; for the orbit also the state
-    after CARRY_AT frames and the drained row of frame CARRY_AT."""
+    """JAX trajectories of both sequences and their drained rows; for the
+    orbit also the state before frames CARRY_AT, KF_AT and KF_AT + 1."""
     out = {}
     for name in SEQS:
         frames, gt = _frames(name)
         tj = JTracker(small_cfg())
         rows = _record_rows(tj)
-        snap = None
+        snaps = {}
         for k, (ts, img, dep) in enumerate(frames):
-            if k == CARRY_AT:
-                snap = (_np_tree(tj.ms), _np_tree(tj.dst))
+            if k in (CARRY_AT, KF_AT, KF_AT + 1):
+                snaps[k] = (_np_tree(tj.ms), _np_tree(tj.dst))
             tj.track(img, dep, ts)
         tj.flush()
         est = np.stack([np.asarray(p) for p in tj.trajectory])
-        out[name] = dict(frames=frames, gt=gt, est=est, rows=rows, snap=snap,
-                         n_kf=int(tj.ms.n_keyframes()))
+        out[name] = dict(frames=frames, gt=gt, est=est, rows=rows, snaps=snaps,
+                         snap=snaps[CARRY_AT], n_kf=int(tj.ms.n_keyframes()))
+        if name == "orbit":  # re-anchored last: nothing above reads it
+            out[name]["reset"] = [_reset_state(tj, RESET_SLOT, Tcw)
+                                  for Tcw in (None, gt[RESET_AT])]
     return out
+
+
+RESET_SLOT, RESET_AT = 1, 9  # re-anchor at keyframe slot 1, at frame 9's true pose
+
+
+def _reset_state(tracker, slot, Tcw):
+    """The host pose, reference slot and restarted filters after
+    reset_reference(slot, Tcw)."""
+    tracker.reset_reference(slot, Tcw)
+    dst = _np_tree(tracker.dst)
+    return dict(T_last=np.array(tracker.st.T_last, np.float32),
+                slot=int(tracker.st.last_kf_slot), ekf=dst["ekf"], imu=dst["imu"],
+                dst_slot=int(dst["last_kf_slot"]))
 
 
 @pytest.fixture(scope="module")
@@ -98,12 +118,23 @@ def port_runs(jax_runs):
     return out
 
 
+def _carried_tracker(j, k):
+    """A port tracker on the JAX tracker's state after frames 0..k-1."""
+    ms_np, dst_np = j["snaps"][k]
+    tp = tt.RGBDTracker(port_cfg(), device="cpu")
+    tp.ms = interop.map_state_from_numpy(ms_np, device="cpu")
+    tp.dst = interop.device_state_from_numpy(dst_np, device="cpu")
+    tp.st.status = "OK"
+    tp.st.frame_id = k
+    tp._t0 = j["frames"][0][0]
+    tp.trajectory = [None] * k
+    return tp
+
+
 def test_one_step_on_carried_state(jax_runs):
     j = jax_runs["orbit"]
-    ms_np, dst_np = j["snap"]
-    tp = tt.RGBDTracker(port_cfg(), device="cpu")
-    tp.ms = interop.map_state_from_numpy(ms_np)
-    tp.dst = interop.device_state_from_numpy(dst_np)
+    dst_np = j["snap"][1]
+    tp = _carried_tracker(j, CARRY_AT)
     back = interop.device_state_to_numpy(tp.dst)
     filters = ("ekf", "imu")
     pairs = [(dst_np[k][f], back[k][f]) for k in filters for f in back[k]]
@@ -111,11 +142,7 @@ def test_one_step_on_carried_state(jax_runs):
     assert set(back) == set(dst_np) and set(back["imu"]) == set(dst_np["imu"])
     for a, b in pairs:  # every field, the IMU filter's included, both ways
         np.testing.assert_array_equal(a, b, strict=True)
-    tp.st.status = "OK"
-    tp.st.frame_id = CARRY_AT
-    tp._t0 = j["frames"][0][0]
     rows = _record_rows(tp)
-    tp.trajectory = [None] * CARRY_AT
     ts, img, dep = j["frames"][CARRY_AT]
     tp.track(img, dep, ts)
     tp.flush()
@@ -166,3 +193,71 @@ def test_track_batch_matches_per_frame(jax_runs):
     # the same per-frame step on the same inputs in the same order
     np.testing.assert_array_equal(a, b)
     assert t1.kf_events == t2.kf_events
+
+
+def test_reset_reference_matches_jax(jax_runs, port_runs):
+    """reset_reference(slot) re-anchors at the keyframe's pose (each
+    package's own map: within 1e-4), reset_reference(slot, Tcw) at Tcw
+    (equal); the motion and IMU filters restart the same way."""
+    tp = port_runs["orbit"]
+    for want, Tcw in zip(jax_runs["orbit"]["reset"], (None, jax_runs["orbit"]["gt"][RESET_AT])):
+        got = _reset_state(tp, RESET_SLOT, Tcw)
+        assert got["slot"] == got["dst_slot"] == want["slot"] == want["dst_slot"] == RESET_SLOT
+        tol = 1e-4 if Tcw is None else 0.0
+        np.testing.assert_allclose(got["T_last"], want["T_last"], atol=tol)
+        for f in ("ekf", "imu"):
+            for k, v in want[f].items():
+                np.testing.assert_allclose(got[f][k], v, atol=tol, err_msg=f"{f}.{k}")
+    np.testing.assert_array_equal(got["T_last"], np.float32(jax_runs["orbit"]["gt"][RESET_AT]))
+
+
+def test_track_step_and_kf_pipeline_match_jax(jax_runs, monkeypatch):
+    """The JAX module's entry points, on the JAX tracker's state before
+    keyframe frame KF_AT: called with the arguments and keywords (the JAX
+    static_argnames) that the port's tracker hands its cores for that
+    frame, track_step gives the JAX row's inlier, match and alignment
+    counts and its packed pose is its TrackOutput's; kf_pipeline gives the
+    JAX row's pose (after local BA) and the JAX map after the frame."""
+    j = jax_runs["orbit"]
+    tp = _carried_tracker(j, KF_AT)
+    calls = {}
+
+    def spy(name):
+        orig = getattr(tt, name)
+
+        def rec(*args, **kw):
+            calls[name] = (args, kw)
+            return orig(*args, **kw)
+        monkeypatch.setattr(tt, name, rec)
+
+    spy("_track_core")
+    spy("_kf_core")
+    ts, img, dep = j["frames"][KF_AT]
+    tp.track(img, dep, ts)
+    tp.flush()
+    assert set(calls) == {"_track_core", "_kf_core"}
+    row = j["rows"][KF_AT]
+    assert row[jt.PACK_NEED_KF] == 1.0
+
+    args, kw = calls["_track_core"]
+    assert set(kw) <= {"scale_factor", "n_levels", "align_min_level", "th_radius",
+                       "pose_gn_schedule"}
+    ot, pt = tt.track_step(*args, **kw)
+    pt = pt.numpy()
+    assert pt.shape == (19,)
+    np.testing.assert_allclose(pt[tt.PACK_POSE], ot.Tcw.numpy().ravel())
+    for k in (tt.PACK_INLIERS, tt.PACK_MATCHES):
+        assert pt[k] == row[jt.PACK_INLIERS if k == tt.PACK_INLIERS else jt.PACK_MATCHES]
+        assert pt[k] > 100, k
+    np.testing.assert_allclose(pt[tt.PACK_ALIGN_ERR], row[jt.PACK_ALIGN_ERR], rtol=1e-3)
+
+    args, kw = calls["_kf_core"]
+    assert set(kw) <= {"scale_factor", "n_levels", "covis_min", "ba_schedule", "sync"}
+    mst, slot_t, row_t, T_t = tt.kf_pipeline(*args, **kw)
+    msj = jax_runs["orbit"]["snaps"][KF_AT + 1][0]
+    assert int(slot_t) == int(row[jt.PACK_N_KFS]) - 1
+    np.testing.assert_array_equal(row_t.numpy(), msj["kf_mp"][int(slot_t)])
+    np.testing.assert_allclose(T_t.numpy().ravel(), row[jt.PACK_POSE], atol=1e-4)
+    np.testing.assert_allclose(mst.kf_Tcw.numpy(), msj["kf_Tcw"], atol=1e-4)
+    np.testing.assert_array_equal(mst.pt_valid.numpy(), msj["pt_valid"])
+    assert int(mst.n_points()) > 100

@@ -58,7 +58,7 @@ def maps():
     jms = jM.MapState(**{k: (tuple(jnp.asarray(x) for x in v) if k == "kf_pyramid"
                              else jnp.asarray(v)) for k, v in d.items()})
     traj = [np.asarray(T) for T in d["kf_Tcw"][:6]]
-    return jms, interop.map_state_from_numpy(d), traj
+    return jms, interop.map_state_from_numpy(d, device="cpu"), traj
 
 
 def test_covisibility_and_map_render(maps):
