@@ -47,6 +47,7 @@ from sdslam_tpu_torch.pipeline.tracking import (
     KF_STORE_MIN_LEVEL, PACK_NEED_KF, PACK_POSE, KeyframeOutcome, RGBDTracker, _kf_core,
 )
 from sdslam_tpu_torch.utils.config import SystemConfig
+from sdslam_tpu_torch.utils.profiling import frame_span, span
 
 
 def _map_to(ms: M.MapState, device) -> M.MapState:
@@ -160,9 +161,10 @@ class PipelinedRGBDTracker(RGBDTracker):
         self._map_job = None  # frees the inputs: tracking work is now ordered after the pass
 
     def track(self, img, depth_img, timestamp: float):
-        # a LOST tracker relocalizes against the newest map
-        self._poll_map_job(block=self.st.status == "LOST")
-        return super().track(img, depth_img, timestamp)
+        with frame_span(len(self.trajectory)):
+            # a LOST tracker relocalizes against the newest map
+            self._poll_map_job(block=self.st.status == "LOST")
+            return super().track(img, depth_img, timestamp)
 
     def track_batch(self, items, uploaded=None):
         raise NotImplementedError(
@@ -179,7 +181,8 @@ class PipelinedRGBDTracker(RGBDTracker):
     def _map_sync(self, flag: torch.Tensor) -> bool:
         """A host read on the worker (synchronizes the map stream only)."""
         self.map_syncs += 1
-        return bool(flag)
+        with span("sdslam.wait"):
+            return bool(flag)
 
     def _map_pass(self, ready, ms, pose, feats, stored, d, uright, assoc, frame_id, ts, parent):
         dev = self.map_device
@@ -206,21 +209,25 @@ class PipelinedRGBDTracker(RGBDTracker):
 
     def _kf_pass(self, ms, pose, feats, stored, d, uright, assoc, frame_id, ts, parent):
         """The mapping pass on the current device and stream; returns (the
-        new map, its keyframe slot as a host int)."""
+        new map, its keyframe slot as a host int). Its spans carry the
+        keyframe's trajectory index `frame_id` as their request id."""
         cfg, dev = self.cfg, ms.device
-        # the associations were tracked against an older snapshot: drop ids
-        # a since-swapped pass may have culled or replaced
-        safe = torch.clamp(assoc, 0, ms.P - 1).long()
-        assoc = torch.where((assoc >= 0) & ms.pt_valid[safe], assoc, torch.full_like(assoc, -1))
-        close = self.close_depth if np.isfinite(self.close_depth) else 1e9
-        ms_new, slot, _, _ = _kf_core(
-            self.cam, ms, torch.as_tensor(pose, dtype=torch.float32, device=dev), feats.uv,
-            feats.uv_und, feats.octave, feats.angle, feats.desc, feats.valid, d, uright, assoc,
-            stored, torch.full((), frame_id, dtype=torch.int32, device=dev), ts,
-            torch.full((), parent, dtype=torch.int32, device=dev),
-            torch.full((), close, device=dev), scale_factor=cfg.orb.scale_factor,
-            n_levels=cfg.orb.n_levels, covis_min=cfg.map.covis_min_weight,
-            ba_schedule=tuple(cfg.tracking.ba_schedule), sync=self._map_sync,
-        )
-        self.map_syncs += 1
-        return ms_new, int(slot)
+        with span("sdslam.kf", req=frame_id, n=1):
+            # the associations were tracked against an older snapshot: drop
+            # ids a since-swapped pass may have culled or replaced
+            safe = torch.clamp(assoc, 0, ms.P - 1).long()
+            assoc = torch.where((assoc >= 0) & ms.pt_valid[safe], assoc,
+                                torch.full_like(assoc, -1))
+            close = self.close_depth if np.isfinite(self.close_depth) else 1e9
+            ms_new, slot, _, _ = _kf_core(
+                self.cam, ms, torch.as_tensor(pose, dtype=torch.float32, device=dev), feats.uv,
+                feats.uv_und, feats.octave, feats.angle, feats.desc, feats.valid, d, uright, assoc,
+                stored, torch.full((), frame_id, dtype=torch.int32, device=dev), ts,
+                torch.full((), parent, dtype=torch.int32, device=dev),
+                torch.full((), close, device=dev), scale_factor=cfg.orb.scale_factor,
+                n_levels=cfg.orb.n_levels, covis_min=cfg.map.covis_min_weight,
+                ba_schedule=tuple(cfg.tracking.ba_schedule), sync=self._map_sync,
+            )
+            self.map_syncs += 1
+            with span("sdslam.wait"):
+                return ms_new, int(slot)

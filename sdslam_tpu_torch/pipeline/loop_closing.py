@@ -35,6 +35,7 @@ from sdslam_tpu_torch.mapping import map_state as M
 from sdslam_tpu_torch.ops import hamming as ham
 from sdslam_tpu_torch.pipeline.relocalization import align_pool
 from sdslam_tpu_torch.solvers import ba, pose_graph, sim3_solver
+from sdslam_tpu_torch.utils.profiling import span
 
 LOOP_ALIGN_MAX_ERROR = 0.03  # KF<->KF coarse alignment bound (ImageAlign ctor)
 # Candidates exclude only keyframes sharing >= 15 observations with the new
@@ -289,7 +290,8 @@ class _Readback:
 
     def numpy(self) -> np.ndarray:
         if self.event is not None:
-            self.event.synchronize()
+            with span("sdslam.wait"):
+                self.event.synchronize()
         return self.host.numpy()
 
 
@@ -328,41 +330,45 @@ class LoopCloser:
         self._kf_count += 1
         if self._kf_count < self._last_loop_kf + self.LOOP_COOLDOWN_KFS:
             return  # reference cooldown: ignore detection after a closure
-        if self._cons is None or self._cons.mask.shape[0] != ms.K:
-            self._cons = init_consistency(ms.K, ms.device)
-        packed, self._cons, _ = detect_and_consistency(
-            self.cam, ms, kf_slot, self._cons, scale_factor=self.scale_factor,
-            n_levels=self.n_levels, min_frame_gap=self.min_frame_gap,
-            consistency_th=self.consistency_th,
-        )
-        self._pending.append((int(kf_slot), _Readback(packed)))
+        with span("sdslam.loop.dispatch", n=1):
+            if self._cons is None or self._cons.mask.shape[0] != ms.K:
+                self._cons = init_consistency(ms.K, ms.device)
+            packed, self._cons, _ = detect_and_consistency(
+                self.cam, ms, kf_slot, self._cons, scale_factor=self.scale_factor,
+                n_levels=self.n_levels, min_frame_gap=self.min_frame_gap,
+                consistency_th=self.consistency_th,
+            )
+            self._pending.append((int(kf_slot), _Readback(packed)))
 
     def poll(self, ms: M.MapState, force: bool = False):
         """Drain landed detection results, dispatch verification for
         consistency hits, apply corrections for drained verifications that
         accepted. Returns (ms, list of info dicts). With force=False a
         result is read only once its copy has landed."""
-        infos = []
-        while self._pending:
-            if (not force and len(self._pending) <= self.DETECT_DEPTH
-                    and not self._pending[0][1].ready()):
-                break
-            kf_slot, rb = self._pending.pop(0)
-            p = rb.numpy()
-            info = {"kf": kf_slot, "detected": bool(p[DET_FOUND])}
-            if p[DET_FOUND]:
-                top = p[DET_TOP:].reshape(3, 3)  # (slot, error, enough)
-                info["n_candidates"] = int(p[DET_N_CAND])
-                info["candidate"] = int(top[0, 0])
-                enough = [int(s) for (s, e, ok) in top if ok > 0 and s >= 0]
-                if enough:
-                    self._dispatch_verify(ms, kf_slot, enough)
-                    info["verifying"] = True
-                else:
-                    info["pending"] = True
-            infos.append(info)
-        ms, vinfos = self._drain_verifications(ms, force=force)
-        return ms, infos + vinfos
+        with span("sdslam.loop.poll") as sp:
+            infos = []
+            while self._pending:
+                if (not force and len(self._pending) <= self.DETECT_DEPTH
+                        and not self._pending[0][1].ready()):
+                    break
+                kf_slot, rb = self._pending.pop(0)
+                p = rb.numpy()
+                info = {"kf": kf_slot, "detected": bool(p[DET_FOUND])}
+                if p[DET_FOUND]:
+                    top = p[DET_TOP:].reshape(3, 3)  # (slot, error, enough)
+                    info["n_candidates"] = int(p[DET_N_CAND])
+                    info["candidate"] = int(top[0, 0])
+                    enough = [int(s) for (s, e, ok) in top if ok > 0 and s >= 0]
+                    if enough:
+                        self._dispatch_verify(ms, kf_slot, enough)
+                        info["verifying"] = True
+                    else:
+                        info["pending"] = True
+                infos.append(info)
+            ms, vinfos = self._drain_verifications(ms, force=force)
+            infos += vinfos
+            sp.n = len(infos)
+        return ms, infos
 
     def _dispatch_verify(self, ms: M.MapState, kf_slot: int, cands: list):
         """Enqueue ComputeSim3 for the best candidate; the rest are retried
@@ -391,7 +397,8 @@ class LoopCloser:
             kf_slot, cand_slot, rest, rb = self._verifying.pop(0)
             p = rb.numpy()
             info = {"kf": kf_slot, "candidate": cand_slot, "sim3_inliers": int(p[1])}
-            valid = ms.kf_valid[[kf_slot, cand_slot]].cpu().numpy()
+            with span("sdslam.wait"):
+                valid = ms.kf_valid[[kf_slot, cand_slot]].cpu().numpy()
             if not p[0]:  # rejected: try the next candidate
                 if rest and valid[0]:
                     self._dispatch_verify(ms, kf_slot, rest)

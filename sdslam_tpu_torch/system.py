@@ -28,6 +28,7 @@ from sdslam_tpu_torch.pipeline.loop_closing import LoopCloser
 from sdslam_tpu_torch.pipeline.sensors import IMUStateEKF
 from sdslam_tpu_torch.pipeline.tracking import MonoTracker, RGBDTracker
 from sdslam_tpu_torch.utils.config import SystemConfig
+from sdslam_tpu_torch.utils.profiling import frame_span
 
 MONOCULAR = "monocular"
 RGBD = "rgbd"
@@ -67,14 +68,16 @@ class SDSlamSystem:
 
     def track_monocular(self, image, timestamp: float) -> np.ndarray:
         assert self.sensor == MONOCULAR, "system built for another sensor"
-        pose = self.tracker.track(image, timestamp)
-        self._after_frame()
+        with frame_span(len(self.tracker.trajectory)):
+            pose = self.tracker.track(image, timestamp)
+            self._after_frame()
         return pose
 
     def track_rgbd(self, image, depth, timestamp: float) -> np.ndarray:
         assert self.sensor == RGBD, "system built for another sensor"
-        pose = self.tracker.track(image, depth, timestamp)
-        self._after_frame()
+        with frame_span(len(self.tracker.trajectory)):
+            pose = self.tracker.track(image, depth, timestamp)
+            self._after_frame()
         return pose
 
     def track_fusion(self, image, measurements, timestamp: float) -> np.ndarray:
@@ -85,12 +88,13 @@ class SDSlamSystem:
         assert self.sensor == MONOCULAR_IMU, "system built for another sensor"
         m = np.asarray(measurements, float).reshape(-1)
         dt = max(timestamp - self.tracker.st.last_ts, 1e-3)
-        self.tracker.inject_imu(m[:3], m[3:6])
-        if self.tracker.st.status != "NOT_INITIALIZED" and self.tracker.st.T_last is not None:
-            self.imu.predict(dt)
-            self.imu.update(np.asarray(self.tracker.st.T_last), m[:3], m[3:6], dt)
-        pose = self.tracker.track(image, timestamp)
-        self._after_frame()
+        with frame_span(len(self.tracker.trajectory)):
+            self.tracker.inject_imu(m[:3], m[3:6])
+            if self.tracker.st.status != "NOT_INITIALIZED" and self.tracker.st.T_last is not None:
+                self.imu.predict(dt)
+                self.imu.update(np.asarray(self.tracker.st.T_last), m[:3], m[3:6], dt)
+            pose = self.tracker.track(image, timestamp)
+            self._after_frame()
         return pose
 
     def _apply_infos(self, infos):

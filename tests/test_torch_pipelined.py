@@ -21,6 +21,7 @@ from sdslam_tpu_torch.geometry.camera import CameraModel as TCam
 from sdslam_tpu_torch.io.synthetic import SyntheticSequence
 from sdslam_tpu_torch.parallel.pipelined import PipelinedRGBDTracker
 from sdslam_tpu_torch.utils import config as tconfig
+from sdslam_tpu_torch.utils import profiling
 from sdslam_tpu_torch.utils.metrics import ate_rmse
 
 torch.set_num_threads(2)
@@ -58,18 +59,22 @@ def _commit(jt):
 CAM = dict(fx=160.0, fy=160.0, cx=79.5, cy=59.5, width=160, height=120, bf=16.0)
 
 
-def test_pipelined_tracks_and_maps():
+def test_pipelined_tracks_and_maps(monkeypatch):
     """tests/test_pipelined.py's gates on the port alone (its 14-frame
     orbit at tests/test_dist_align.py's configuration), polls not
-    blocking: the passes overlap the tracking loop."""
+    blocking: the passes overlap the tracking loop. The worker's spans
+    carry their keyframe's trajectory index and open no span of the
+    tracking thread's."""
+    monkeypatch.setattr(profiling, "_RECORDER", profiling.SpanRecorder())
     cam = CAM
     cfg = _config(tconfig, TCam, cam, 256, 3, 8, 1024)
     tr = PipelinedRGBDTracker(cfg, device="cpu")
-    threads = []
+    threads, kf_frames = [], []
     kf_pass = tr._kf_pass
 
     def spy(*a, **kw):
         threads.append(threading.current_thread())
+        kf_frames.append(a[7])  # the keyframe's trajectory index
         return kf_pass(*a, **kw)
 
     tr._kf_pass = spy
@@ -93,6 +98,24 @@ def test_pipelined_tracks_and_maps():
     assert threads and all(t is not threading.main_thread() for t in threads)
     assert len(threads) == tr.kf_dispatched == len(tr.kf_events) >= 1
     assert tr.map_syncs >= 2 * tr.kf_dispatched  # culling gate + slot, per pass
+    spans = profiling.spans()
+    by_id = {s.id: s for s in spans}
+    passes = [s for s in spans if s.name == "sdslam.kf"]
+    assert [s.req for s in passes] == kf_frames and all(s.parent == 0 for s in passes)
+    for s in spans:
+        root = s
+        while root.parent:
+            root = by_id[root.parent]
+        if root.name == "sdslam.kf":
+            assert s.req == root.req
+            assert s.name in ("sdslam.kf", "sdslam.wait") or s.name.startswith("sdslam.kf.")
+        else:
+            # a call's spans, or the final flush's drains
+            assert root.name in ("sdslam.frame", "sdslam.drain")
+            assert not s.name.startswith("sdslam.kf")
+    waits = sum(s.name == "sdslam.wait" for s in spans if s.req in kf_frames
+                and by_id.get(s.parent, s).name.startswith("sdslam.kf"))
+    assert waits == tr.map_syncs
     with pytest.raises(NotImplementedError, match="track_batch"):
         tr.track_batch([seq.frame(0)])
 
