@@ -3,8 +3,10 @@
 
 The system under test is `sdslam_tpu_torch.system.SDSlamSystem`, built
 from the configuration's settings through the program's own loader
-(`utils.config.load_config` on the reference's YAML keys). Frames are
-offered in a closed loop: the next frame goes in when the facade returns.
+(`utils.config.load_config` on the reference's YAML keys), for the
+configuration's `sensor`; what depends on the sensor is its row in
+`perf_bench/sensors.py`. Frames are offered in a closed loop: the next
+frame goes in when the facade returns.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import time
 import numpy as np
 import torch
 
-from perf_bench import check, orb_ref, stats, trace
+from perf_bench import check, orb_ref, sensors, stats, trace
 from perf_bench import scene as sc
 from perf_bench import traffic as tr
 
@@ -42,41 +44,50 @@ def program_config(conf: dict, control: bool):
 
 
 class Runner:
-    """Hands frames to the facade and logs each call."""
+    """Hands frames to the facade, by the sensor's call, and logs each call."""
 
-    def __init__(self, slam, lap: tr.Lap, sched: tr.Schedule):
-        self.slam, self.lap, self.sched = slam, lap, sched
+    def __init__(self, slam, spec: sensors.Sensor, lap: tr.Lap, sched: tr.Schedule,
+                 imu: tr.ImuStream = None):
+        self.slam, self.lap, self.sched, self.imu = slam, lap, sched, imu
+        self.track, self.inputs = getattr(slam, spec.method), spec.inputs
         self.lap_idx = []  # per call, set-up included
         self.calls = []  # per call of the window and the traced block
-        # (lap index, features, keypoint depths) of the tracked calls among
-        # the window's first ORB_SAMPLE_SPAN; the ORB check samples them
+        # (lap index, features, keypoint depths or None) of the tracked calls
+        # among the window's first ORB_SAMPLE_SPAN; the ORB check samples them
         self.orb_frames = []
 
     def feed(self, log: bool):
         """Hand the facade the schedule's next frame; with `log`, record
-        the call (its time, and whether the tracker was tracking)."""
+        the call (its time, whether the tracker was tracking, and whether
+        the call returned a pose: one made while not tracking, not yet
+        initialized or lost, and that left the tracker so, returned none)."""
         k, ts = self.sched.next()
+        args = self.inputs(self.lap, k, self.imu)
         tracker = self.slam.tracker
         before = tracker.st.status
         t0 = time.perf_counter()
-        self.slam.track_rgbd(self.lap.images[k], self.lap.depths[k], ts)
+        self.track(*args, ts)
         dt = time.perf_counter() - t0
         self.lap_idx.append(k)
         if log:
             n = len(self.calls)
-            self.calls.append({"call": len(self.lap_idx) - 1, "lap_idx": k, "ms": dt * 1e3})
+            self.calls.append({"call": len(self.lap_idx) - 1, "lap_idx": k, "ms": dt * 1e3,
+                               "posed": before == "OK" or tracker.st.status == "OK"})
             if n < ORB_SAMPLE_SPAN and before == "OK":
                 f = tracker.st.last_frame  # its features and keypoint depths: no copy, no sync
-                self.orb_frames.append((k, f.features, f.depth))
+                self.orb_frames.append((k, f.features,
+                                        None if self.lap.depths is None else f.depth))
 
 
 def _features(f, depth) -> dict:
-    """The program's valid keypoints of a frame (its FrameFeatures and
-    per-keypoint depths), on the host, in the form orb_ref.mismatch
-    compares."""
+    """The program's valid keypoints of a frame (its FrameFeatures and, for
+    a camera with depth, per-keypoint depths), on the host, in the form
+    orb_ref.mismatch compares."""
     v = f.valid.bool()
     out = {"uv": f.uv[v].cpu(), "uv_und": f.uv_und[v].cpu(), "octave": f.octave[v].cpu(),
-           "bits": orb_ref.desc_bits(f.desc[v]).cpu(), "depth": depth[v].cpu()}
+           "bits": orb_ref.desc_bits(f.desc[v]).cpu()}
+    if depth is not None:
+        out["depth"] = depth[v].cpu()
     return out
 
 
@@ -94,23 +105,23 @@ def run_cell(manifest, name: str, seed: int, seconds: float, traced: bool, devic
     conf = manifest.config(cell["config"])
     params = manifest.traffic(cell["traffic"])
     settings = conf["settings"]
-    if conf["sensor"] != "rgbd":
-        raise ValueError(f"the harness drives RGB-D deployments only, not {conf['sensor']!r}")
+    spec = sensors.sensor(conf["sensor"])
     if dev.type == "cuda":
         from sdslam_tpu_torch.kernels import _build
 
         _build.build()  # the first run of a checkout compiles; later runs find them built
     cfg = program_config(conf, control)
     cam = sc.Camera.from_yaml_keys(settings)
-    depth_factor = float(settings.get("DepthMapFactor", 1.0))
+    depth_factor = float(settings.get("DepthMapFactor", 1.0)) if spec.depth else None
     lap = tr.make_lap(params, cam, depth_factor, seed, dev)
+    imu = tr.ImuStream(lap.poses, params, seed) if spec.imu else None
     sched = tr.Schedule(params, len(lap.poses))
     if dev.type == "cuda":
         warm_libraries(dev)
         torch.cuda.reset_peak_memory_stats()
-    slam = system.SDSlamSystem(cfg, sensor="rgbd",
+    slam = system.SDSlamSystem(cfg, sensor=spec.name,
                                loop_closing=bool(params["loop_closing"]), device=dev)
-    run = Runner(slam, lap, sched)
+    run = Runner(slam, spec, lap, sched, imu)
     for _ in range(int(params.get("setup_laps", 0)) * len(lap.poses)
                    + int(params.get("setup_frames", 0))):
         run.feed(False)
@@ -142,6 +153,7 @@ def run_cell(manifest, name: str, seed: int, seconds: float, traced: bool, devic
     fm = tracker.frame_ms
     ctx = {
         "frames": n_win,
+        "window_s": window_s,
         "calls": win_calls,
         "host_syncs": tracker.host_syncs - syncs0,
         "frame_ms": {k: v[fm0[k]:] for k, v in fm.items()},
@@ -178,7 +190,7 @@ def run_cell(manifest, name: str, seed: int, seconds: float, traced: bool, devic
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    numbers = check.compare(out, lap, cam, settings, dev)
+    numbers = check.compare(out, lap, cam, settings, dev, fit_sim3=spec.fit_sim3)
     return {"e2e": e2e, "ctx": ctx, "numbers": numbers, "frames": n_win, "diag": diag,
             "memory_peak_bytes": peak}
 
@@ -237,8 +249,14 @@ def collect(slam, run: Runner) -> dict:
                         else tracker.trajectory[c["call"]], np.float64) for c in run.calls]
     ms = tracker.ms
     kf_valid = ms.kf_valid.cpu().numpy()
-    # a keyframe's timestamp (from the first frame's) names the call it came from
-    calls = np.rint(ms.kf_timestamp.cpu().numpy()[kf_valid].astype(np.float64) * run.sched.fps)
+    # a keyframe's timestamp names the call it came from; the tracker counts
+    # it from the first timestamp it stored (the first frame's with depth; a
+    # monocular tracker's first keyframe, the bootstrap's first view). The
+    # tracker has no public accessor for that offset: read without a
+    # default, so that a rename raises instead of naming the wrong calls
+    t0 = float(tracker._t0) if kf_valid.any() else 0.0
+    calls = np.rint((ms.kf_timestamp.cpu().numpy()[kf_valid].astype(np.float64) + t0)
+                    * run.sched.fps)
     lap_idx = np.asarray(run.lap_idx)
     kf_lap = lap_idx[np.clip(calls.astype(np.int64), 0, len(lap_idx) - 1)]
     return {

@@ -24,6 +24,7 @@ import torch
 
 UNDISTORT_TOL_PX = 1e-6  # distort(undistort(pixel)) lands this close to the pixel
 NEWTON_ITERS = 30
+DOWN = (0.0, 1.0, 0.0)  # the room's down axis (make_room_scene: x right, y down, z forward)
 
 
 class Camera(NamedTuple):
@@ -63,8 +64,8 @@ class PlaneScene(NamedTuple):
 
 
 def make_room_scene(seed: int = 0, n_waves: int = 48, size: float = 2.5) -> PlaneScene:
-    """Open room around the origin (x right, y down, z forward): five
-    textured walls and eight textured rectangles floating inside."""
+    """Open room around the origin (x right, y down, z forward: `DOWN`):
+    five textured walls and eight textured rectangles floating inside."""
     rng = np.random.default_rng(seed)
     normals = np.array(
         [[0.0, 0.0, -1.0], [1.0, 0.0, 0.0], [-1.0, 0.0, 0.0],

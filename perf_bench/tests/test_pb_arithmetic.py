@@ -87,3 +87,15 @@ def test_judge_holds_every_number_to_its_limit():
     assert ok
     ok, _ = check.judge({"ate_cm": float("inf")}, {"ate_cm": 1.0})  # an answer that never came
     assert not ok
+
+
+def test_frame_rate_reads_the_window():
+    """The per-layer frame rate is the window's frames over its seconds, as
+    the end-to-end rate was; an empty window reads nothing."""
+    from pathlib import Path
+
+    from perf_bench.manifest import Manifest
+
+    read = Manifest(Path(__file__).resolve().parents[2]).layer_reader("frame_rate")
+    assert read({"frames": 918, "window_s": 51.0}) == pytest.approx(18.0)
+    assert read({"frames": 0, "window_s": 0.0}) is None
