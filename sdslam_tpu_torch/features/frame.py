@@ -5,6 +5,16 @@ A Frame holds fixed-shape tensors: keypoints padded to a static capacity
 with a validity mask, descriptors as [N, 8] int32 words, and the image
 pyramid the direct alignment needs.
 
+The direct aligner reads pyramid levels >= ALIGN_MIN_LEVEL and warps
+through a pinhole. On a camera with lens distortion those levels are
+remapped to the pinhole camera (the same fx, fy, cx, cy, scaled per
+level): each pixel blends the raw level's 2x2 pixels around the distorted
+position of its ray (`LensLevels`, fixed per camera), so a patch is
+sampled at a keypoint's undistorted position. Levels below stay raw (ORB
+and the chessboard read them). A remapped pixel whose source leaves the
+raw level reads 0 and is marked invalid; `lens_usable` keeps it out of
+the aligner's residuals. Without distortion nothing is remapped.
+
 Extraction is a pure function of the image and depth whose shapes the
 camera fixes, a few thousand small kernels a frame. On the card it is
 captured once per input key as a CUDA graph and replayed, so the host
@@ -14,8 +24,9 @@ eagerly.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from sdslam_tpu_torch.geometry import camera as cam_mod
@@ -26,6 +37,14 @@ from sdslam_tpu_torch.ops import pyramid as pyr_ops
 from sdslam_tpu_torch.ops import sample as smp
 from sdslam_tpu_torch.utils.config import ORBConfig
 from sdslam_tpu_torch.utils.profiling import span
+
+
+ALIGN_MIN_LEVEL = 2  # the direct aligner reads pyramid levels >= 2
+# pixels, either way of a patch centre's floor at one level, that the
+# aligner reads: a 4x4 patch's bilinear values and central differences in
+# the reference (3); in the current frame the level kernel reads 2, which
+# leaves 1 for the motion of a level's Gauss-Newton loop away from its seed
+LENS_SUPPORT = 3
 
 
 class FrameFeatures(NamedTuple):
@@ -44,7 +63,7 @@ class FrameFeatures(NamedTuple):
 
 class Frame(NamedTuple):
     features: FrameFeatures
-    pyramid: Tuple[torch.Tensor, ...]
+    pyramid: Tuple[torch.Tensor, ...]  # levels >= ALIGN_MIN_LEVEL: the alignment levels
     depth: torch.Tensor  # [N] per-keypoint depth (>0) or -1
     uright: torch.Tensor  # [N] virtual right coord u - bf/d, or -1
     Tcw: torch.Tensor  # [4,4]
@@ -130,9 +149,11 @@ class ORBExtractor:
 
 def extract_channels(extractor: ORBExtractor, img, depth_img, depth_factor: float):
     """`ORBExtractor.core`'s computation, eagerly: extraction, undistortion,
-    per-keypoint depth and the virtual right coordinate."""
+    the alignment levels, per-keypoint depth and the virtual right
+    coordinate."""
     img = img.to(torch.float32)
     feats, pyramid = extractor.extract(img)
+    pyramid = alignment_levels(extractor.cam, pyramid, extractor.cfg.scale_factor)
     n = feats.uv.shape[0]
     if depth_img is None:
         neg = torch.full((n,), -1.0, device=img.device)
@@ -147,6 +168,124 @@ def extract_channels(extractor: ORBExtractor, img, depth_img, depth_factor: floa
     d = torch.where(feats.valid & (d > 0), d, torch.full_like(d, -1.0))
     uright = cam_mod.virtual_right(extractor.cam, feats.uv_und[:, 0], d)
     return feats, pyramid, d, uright
+
+
+class LensLevels(NamedTuple):
+    """A distorted camera's alignment levels (ALIGN_MIN_LEVEL on) as
+    pinhole images, per level [H, W]: each pinhole pixel's ray, distorted
+    through k1, k2, p1, p2, k3, lands at a position in the raw level, and
+    the pixel is the bilinear blend of the raw 2x2 pixels there. Built once
+    per camera, level shapes and device (`lens_levels`)."""
+
+    index: Tuple[torch.Tensor, ...]  # [4, H*W] int64: the raw pixels each pixel blends
+    weight: Tuple[torch.Tensor, ...]  # [4, H*W] float32: their weights (0 where invalid)
+    valid: Tuple[torch.Tensor, ...]  # [H, W] bool: the source's 2x2 lies inside the raw level
+    usable: torch.Tensor  # [sum H*W] bool: every valid pixel within LENS_SUPPORT valid
+    scale: torch.Tensor  # [L] level-0 -> level pixel scale
+    size: torch.Tensor  # [L, 2] int64 (W, H)
+    offset: torch.Tensor  # [L] int64: a level's first entry in `usable`
+    all_usable: bool  # no pixel of any level is unusable (a barrel lens)
+
+
+_LENS: Dict[tuple, LensLevels] = {}
+
+
+def lens_levels(cam: CameraModel, scale_factor: float, shapes, device) -> LensLevels:
+    """The `LensLevels` of a distorted camera whose alignment levels have
+    `shapes` ((H, W) per level, from ALIGN_MIN_LEVEL), on `device`; the
+    maps are computed in float64 on the host on first use and kept."""
+    shapes = tuple((int(h), int(w)) for h, w in shapes)
+    device = torch.device(device)
+    key = (cam, float(scale_factor), shapes, device)
+    lens = _LENS.get(key)
+    if lens is None:
+        lens = _LENS[key] = _build_lens_levels(cam, float(scale_factor), shapes, device)
+    return lens
+
+
+def _build_lens_levels(cam: CameraModel, sf: float, shapes, device) -> LensLevels:
+    index, weight, valid, usable, scale = [], [], [], [], []
+    r = LENS_SUPPORT
+    for i, (h, w) in enumerate(shapes):
+        s = 1.0 / sf ** (ALIGN_MIN_LEVEL + i)
+        y, x = np.meshgrid(np.arange(h, dtype=np.float64), np.arange(w, dtype=np.float64),
+                           indexing="ij")
+        xn, yn = (x / s - cam.cx) / cam.fx, (y / s - cam.cy) / cam.fy
+        radial, dx, dy = cam_mod._distortion(cam, xn, yn)
+        u = (cam.fx * (xn * radial + dx) + cam.cx) * s
+        v = (cam.fy * (yn * radial + dy) + cam.cy) * s
+        x0, y0 = np.floor(np.clip(u, -1e9, 1e9)), np.floor(np.clip(v, -1e9, 1e9))
+        ok = (x0 >= 0) & (x0 < w - 1) & (y0 >= 0) & (y0 < h - 1)
+        wx, wy = u - x0, v - y0
+        # an invalid pixel blends pixel 0's neighbours with weight 0
+        x0 = np.where(ok, x0, 0).astype(np.int64)
+        y0 = np.where(ok, y0, 0).astype(np.int64)
+        base = y0 * w + x0
+        idx = np.stack([base, base + w, base + 1, base + w + 1]).reshape(4, -1)
+        wts = np.stack([(1 - wx) * (1 - wy), (1 - wx) * wy, wx * (1 - wy), wx * wy])
+        wts = np.where(ok[None], wts, 0.0).reshape(4, -1)
+        # usable: no invalid pixel within r either way (outside the level
+        # counts as valid: the aligner's own bounds test covers it)
+        pad = np.pad(ok, r, constant_values=True)
+        use = np.ones_like(ok)
+        for dy in range(2 * r + 1):
+            for dx in range(2 * r + 1):
+                use &= pad[dy: dy + h, dx: dx + w]
+        index.append(torch.from_numpy(idx).to(device))
+        weight.append(torch.from_numpy(wts.astype(np.float32)).to(device))
+        valid.append(torch.from_numpy(ok).to(device))
+        usable.append(use.reshape(-1))
+        scale.append(s)
+    sizes = np.array([(w, h) for h, w in shapes], np.int64).reshape(-1, 2)
+    offset = np.concatenate([[0], np.cumsum(sizes[:, 0] * sizes[:, 1])[:-1]]).astype(np.int64)
+    flat = np.concatenate(usable) if usable else np.ones(0, bool)
+    return LensLevels(tuple(index), tuple(weight), tuple(valid),
+                      torch.from_numpy(flat).to(device),
+                      torch.tensor(scale, dtype=torch.float32).to(device),
+                      torch.from_numpy(sizes).to(device), torch.from_numpy(offset).to(device),
+                      bool(flat.all()))
+
+
+def alignment_levels(cam: CameraModel, pyramid, scale_factor: float):
+    """The pyramid with its alignment levels (ALIGN_MIN_LEVEL on) remapped
+    to the pinhole camera where `cam` has distortion; else `pyramid`."""
+    pyramid = tuple(pyramid)
+    if not cam.has_distortion or len(pyramid) <= ALIGN_MIN_LEVEL:
+        return pyramid
+    raw = pyramid[ALIGN_MIN_LEVEL:]
+    lens = lens_levels(cam, scale_factor, [p.shape for p in raw], raw[0].device)
+    return pyramid[:ALIGN_MIN_LEVEL] + tuple(
+        (p.reshape(-1)[i] * w).sum(0).reshape(p.shape)
+        for p, i, w in zip(raw, lens.index, lens.weight))
+
+
+def lens_usable(lens: LensLevels, uv) -> torch.Tensor:
+    """Per alignment level, whether an aligner patch centred at each
+    pinhole position reads only valid remapped pixels: uv [S, ..., 2] at
+    level-0 scale (S positions per patch, e.g. where it sits in the
+    reference and where the current frame's seed pose puts it) -> [L, ...]
+    bool, true where every one of the S is usable. A position outside the
+    level takes its nearest border pixel's answer."""
+    L = lens.scale.shape[0]
+    shp = (L,) + (1,) * (uv.dim() - 1)
+    uvl = uv[None] * lens.scale.reshape(shp + (1,))
+    xy = torch.floor(torch.clamp(uvl, -1e9, 1e9)).to(torch.int64)
+    xy = torch.minimum(torch.clamp(xy, min=0), (lens.size - 1).reshape(shp + (2,)))
+    idx = lens.offset.reshape(shp) + xy[..., 1] * lens.size[:, 0].reshape(shp) + xy[..., 0]
+    return lens.usable[idx].all(dim=1)
+
+
+def alignment_mask(cam: CameraModel, scale_factor: float, levels, positions):
+    """The aligner's per-level patch mask (`lens_usable`) on a distorted
+    camera's alignment levels (`levels`: tensors [..., H, W] from
+    ALIGN_MIN_LEVEL on, such as a map's stored keyframe levels) at
+    `positions()` ([S, ..., 2] pinhole pixels); None, and `positions` not
+    called, where every remapped pixel is usable (no distortion, or a lens
+    whose every ray lands inside the raw image)."""
+    if not cam.has_distortion:
+        return None
+    lens = lens_levels(cam, scale_factor, [p.shape[-2:] for p in levels], levels[0].device)
+    return None if lens.all_usable else lens_usable(lens, positions())
 
 
 def graph_key(img, depth_img, depth_factor: float) -> tuple:

@@ -10,7 +10,9 @@ and System::LoadTrajectory, System.cc:387-533):
 Poses are world-from-camera (the reference saves GetPoseInverse).
 
 As in the JAX package, keyframes keep pyramid levels >= 2 only, so each
-keyframe's PNG is its finest stored level upsampled to the camera's size,
+keyframe's PNG is its finest stored level upsampled to the camera's size
+(on a distorted camera, whose stored levels are its pinhole camera's,
+resampled back through the lens: the port's own deviation),
 and RGB-D depth images are not kept (no depth PNG). A loaded map serves
 relocalization and localization-only tracking, what the reference's load
 path is for; `SDSlamSystem.save_map` keeps the exact arrays.
@@ -30,6 +32,22 @@ import torch
 def _fmt(x: float) -> str:
     # std::to_string(double): fixed, 6 decimals
     return f"{float(x):.6f}"
+
+
+def _through_lens(cam, level, scale_factor: float) -> np.ndarray:
+    """A distorted camera's finest stored level, which is its pinhole
+    camera's (features/frame.py), drawn back through the lens at the
+    camera's size: each raw pixel samples the level at its undistorted
+    position, so the PNG is what the camera saw."""
+    from sdslam_tpu_torch.features.frame import ALIGN_MIN_LEVEL
+    from sdslam_tpu_torch.geometry import camera as cam_mod
+    from sdslam_tpu_torch.ops import sample
+
+    v, u = torch.meshgrid(torch.arange(cam.height, dtype=torch.float32, device=level.device),
+                          torch.arange(cam.width, dtype=torch.float32, device=level.device),
+                          indexing="ij")
+    uv = cam_mod.undistort_pixels(cam, torch.stack([u, v], -1))
+    return sample.sample_bilinear(level, uv / scale_factor**ALIGN_MIN_LEVEL)[0].cpu().numpy()
 
 
 def save_trajectory_yaml(system, path: str, folder: str) -> None:
@@ -53,11 +71,15 @@ def save_trajectory_yaml(system, path: str, folder: str) -> None:
     slots = sorted((int(s) for s in np.flatnonzero(kf_valid)), key=lambda s: int(kf_ids[s]))
 
     out.append("keyframes:")
-    finest = ms.kf_pyramid[0].cpu().numpy()
+    finest = ms.kf_pyramid[0]
     for s in slots:
         kid = int(kf_ids[s])
-        pil = Image.fromarray(np.clip(finest[s], 0, 255).astype(np.uint8))
-        pil = pil.resize((cam.width, cam.height), Image.BILINEAR)
+        if cam.has_distortion:
+            img = _through_lens(cam, finest[s], system.config.orb.scale_factor)
+            pil = Image.fromarray(np.clip(img, 0, 255).astype(np.uint8))
+        else:
+            pil = Image.fromarray(np.clip(finest[s].cpu().numpy(), 0, 255).astype(np.uint8))
+            pil = pil.resize((cam.width, cam.height), Image.BILINEAR)
         imgname = os.path.join(folder, f"{kid}.png")
         pil.save(imgname)
         Twc = np.linalg.inv(kf_Tcw[s])

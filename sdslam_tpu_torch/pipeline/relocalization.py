@@ -17,6 +17,7 @@ import torch
 
 from sdslam_tpu_torch._util import scatter_set, take
 from sdslam_tpu_torch.features import matching
+from sdslam_tpu_torch.features.frame import alignment_mask
 from sdslam_tpu_torch.geometry import camera as cam_mod
 from sdslam_tpu_torch.geometry import lie
 from sdslam_tpu_torch.geometry.camera import CameraModel
@@ -38,10 +39,12 @@ class RelocResult(NamedTuple):
 
 def pool_alignment_inputs(cam: CameraModel, ms: M.MapState):
     """Per-slot (uv [K,N,2], X_ref [K,N,3], valid [K,N]) of every keyframe
-    as an alignment reference: keypoints with depth and a bound point."""
+    as an alignment reference: keypoints with depth and a bound point, at
+    their undistorted positions (the stored levels are the pinhole
+    camera's, features/frame.py)."""
     valid = ms.kf_kp_valid & (ms.kf_depth > 0) & (ms.kf_mp >= 0)
     X_ref = cam_mod.backproject(cam, ms.kf_uv_und, torch.clamp(ms.kf_depth, min=1e-3))
-    return ms.kf_uv, X_ref, valid
+    return ms.kf_uv_und, X_ref, valid
 
 
 def align_pool(cam: CameraModel, ms: M.MapState, cur_pyr, max_level: int, min_level: int,
@@ -55,6 +58,8 @@ def align_pool(cam: CameraModel, ms: M.MapState, cur_pyr, max_level: int, min_le
         ms.kf_pyramid, cur_pyr, uv, X_ref, valid, torch.eye(4, device=ms.device),
         cam.fx, cam.fy, cam.cx, cam.cy, scale_factor=scale_factor, max_level=max_level,
         min_level=min_level, iters=iters, start_level=store_min_level,
+        # seeded at the identity: a patch starts where it sits in its keyframe
+        level_valid=alignment_mask(cam, scale_factor, ms.kf_pyramid, lambda: uv[None]),
     )
     err = torch.where(res.n_meas >= 50, res.error, torch.full_like(res.error, float("inf")))
     return res.T_cur_ref, err

@@ -17,9 +17,16 @@ PyTorch runs eagerly, so the keyframe decision and the keyframe-culling
 gate are Python branches, each one device->host sync. Every other decision
 stays on the device (torch.where). The tracker counts its host syncs.
 Each stage of a call is a span (utils/profiling.py): `sdslam.frame` at the
-root, `sdslam.upload`, `sdslam.orb`, `sdslam.motion`, `sdslam.track_core`,
+root, `sdslam.upload`, `sdslam.orb`, `sdslam.motion` (with
+`sdslam.motion.imu` around the IMU filter once it is active),
+`sdslam.track_core` (with `sdslam.align`, the direct-alignment seed),
 `sdslam.kf` with one span per mapping stage, `sdslam.drain`, `sdslam.reloc`,
 and `sdslam.wait` around each counted device->host read.
+
+The direct alignment reads the frame's alignment levels
+(features/frame.py: on a distorted camera, levels >= 2 remapped to the
+pinhole camera) and samples its patches at the keyframe's undistorted
+keypoints.
 A LOST tracker relocalizes against the whole keyframe pool
 (pipeline/relocalization.py: kernel K5, then K4 and K2) on its next frame.
 """
@@ -36,7 +43,8 @@ import torch
 from sdslam_tpu_torch import _device
 from sdslam_tpu_torch._util import put, scatter_set, take, topk_stable
 from sdslam_tpu_torch.features import matching
-from sdslam_tpu_torch.features.frame import Frame, ORBExtractor, make_frame
+from sdslam_tpu_torch.features.frame import (ALIGN_MIN_LEVEL, Frame, ORBExtractor,
+                                             alignment_mask, make_frame)
 from sdslam_tpu_torch.geometry import camera as cam_mod
 from sdslam_tpu_torch.geometry import lie
 from sdslam_tpu_torch.geometry.camera import CameraModel
@@ -51,8 +59,9 @@ from sdslam_tpu_torch.solvers.sim3_solver import sample_sets
 from sdslam_tpu_torch.utils.config import SystemConfig
 from sdslam_tpu_torch.utils.profiling import frame_span, span
 
-# pyramid levels stored per keyframe (direct alignment runs on levels >= 2)
-KF_STORE_MIN_LEVEL = 2
+# pyramid levels stored per keyframe: the alignment levels (direct alignment
+# runs on levels >= 2), on a distorted camera remapped to its pinhole camera
+KF_STORE_MIN_LEVEL = ALIGN_MIN_LEVEL
 
 
 class TrackOutput(NamedTuple):
@@ -61,6 +70,35 @@ class TrackOutput(NamedTuple):
     n_inliers: torch.Tensor  # int32
     n_matches: torch.Tensor  # pre-optimization match count
     align_error: torch.Tensor  # photometric alignment residual
+
+
+def _align_seed(cam: CameraModel, ms: M.MapState, r, T_ref, ref_assoc, ref_safe, pyr_cur,
+                T_pred, scale_factor: float = 2.0, n_levels: int = 5,
+                align_min_level: int = 2) -> image_align.AlignResult:
+    """Step 1 of `_track_core`: direct sparse alignment of the frame's
+    alignment levels against reference keyframe slot r (pose T_ref, point
+    row ref_assoc, clamped ref_safe), seeded at T_pred. Patches sit at the
+    keyframe's undistorted keypoints, with depth from the keyframe or its
+    map points; on a distorted camera a patch that would read a remapped
+    pixel from outside the raw image, where it sits or where the seed puts
+    it, is left out at that level (features/frame.py)."""
+    ref_depth = take(ms.kf_depth, r)
+    map_z = lie.se3_apply(T_ref, ms.pt_pos[ref_safe])[:, 2]
+    has_map = (ref_assoc >= 0) & (map_z > 0.05)
+    depth_eff = torch.where(ref_depth > 0, ref_depth,
+                            torch.where(has_map, map_z, torch.full_like(map_z, -1.0)))
+    align_valid = take(ms.kf_kp_valid, r) & (depth_eff > 0)
+    uv_ref = take(ms.kf_uv_und, r)
+    X_ref_cam = cam_mod.backproject(cam, uv_ref, torch.clamp(depth_eff, min=1e-3))
+    T_seed = T_pred @ lie.se3_inv(T_ref)
+    return image_align.align(
+        tuple(take(pl, r) for pl in ms.kf_pyramid), tuple(pyr_cur[KF_STORE_MIN_LEVEL:]),
+        uv_ref, X_ref_cam, align_valid, T_seed,
+        cam.fx, cam.fy, cam.cx, cam.cy, scale_factor=scale_factor, max_level=n_levels - 1,
+        min_level=align_min_level, start_level=KF_STORE_MIN_LEVEL,
+        level_valid=alignment_mask(cam, scale_factor, ms.kf_pyramid, lambda: torch.stack(
+            [uv_ref, cam_mod.project(cam, lie.se3_apply(T_seed, X_ref_cam))[0]])),
+    )
 
 
 def _track_core(cam: CameraModel, ms: M.MapState, uv_und, desc, octave, kp_valid, uright,
@@ -72,20 +110,11 @@ def _track_core(cam: CameraModel, ms: M.MapState, uv_und, desc, octave, kp_valid
     # --- 1. direct sparse alignment against the reference keyframe ---
     T_ref = take(ms.kf_Tcw, r)
     ref_assoc = take(ms.kf_mp, r)
-    ref_depth = take(ms.kf_depth, r)
     ref_safe = torch.clamp(ref_assoc, 0, P - 1).long()
-    map_z = lie.se3_apply(T_ref, ms.pt_pos[ref_safe])[:, 2]
-    has_map = (ref_assoc >= 0) & (map_z > 0.05)
-    depth_eff = torch.where(ref_depth > 0, ref_depth,
-                            torch.where(has_map, map_z, torch.full_like(map_z, -1.0)))
-    align_valid = take(ms.kf_kp_valid, r) & (depth_eff > 0)
-    X_ref_cam = cam_mod.backproject(cam, take(ms.kf_uv_und, r), torch.clamp(depth_eff, min=1e-3))
-    ares = image_align.align(
-        tuple(take(pl, r) for pl in ms.kf_pyramid), tuple(pyr_cur[KF_STORE_MIN_LEVEL:]),
-        take(ms.kf_uv, r), X_ref_cam, align_valid, T_pred @ lie.se3_inv(T_ref),
-        cam.fx, cam.fy, cam.cx, cam.cy, scale_factor=scale_factor, max_level=n_levels - 1,
-        min_level=align_min_level, start_level=KF_STORE_MIN_LEVEL,
-    )
+    with span("sdslam.align"):
+        ares = _align_seed(cam, ms, r, T_ref, ref_assoc, ref_safe, pyr_cur, T_pred,
+                           scale_factor=scale_factor, n_levels=n_levels,
+                           align_min_level=align_min_level)
     T_init = ares.T_cur_ref @ T_ref
 
     # --- 2. project the reference KF's map points, window match ---
@@ -415,7 +444,8 @@ class RGBDTracker:
                 ekf = ekf._replace(x=torch.cat([ekf.x[:3], gyro]))
             ekf, T_pred = sensors.ekf_predict(ekf, dt)
             if self._imu_active:
-                imu_s, T_pred_imu = sensors.imu_predict(imu_s, dt)
+                with span("sdslam.motion.imu"):
+                    imu_s, T_pred_imu = sensors.imu_predict(imu_s, dt)
                 if use_imu:
                     T_pred = torch.where(dst.imu.updated, T_pred_imu, T_pred)
         with span("sdslam.track_core"):
@@ -437,7 +467,8 @@ class RGBDTracker:
         with span("sdslam.motion"):
             ekf = sensors.ekf_update(ekf, Tcw_fin, dt, track_ok)
             if self._imu_active and use_imu:
-                imu_s = sensors.imu_update(imu_s, Tcw_fin, gyro, accel, dt, track_ok)
+                with span("sdslam.motion.imu"):
+                    imu_s = sensors.imu_update(imu_s, Tcw_fin, gyro, accel, dt, track_ok)
         self.dst = DeviceState(
             ekf=ekf,
             imu=imu_s,

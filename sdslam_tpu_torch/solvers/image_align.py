@@ -11,7 +11,10 @@ level for all lanes in kernel K5's batched form
 (kernels/accumulate_gn_kernel.py: one launch per level on the card, the
 plain loop on the CPU). Levels run coarse to fine;
 `start_level` says which pyramid level entry 0 of the tuples is
-(keyframes store levels >= 2).
+(keyframes store levels >= 2). The warp is a pinhole: on a distorted
+camera the callers hand over levels remapped to the pinhole camera and
+patches at undistorted keypoints, with `level_valid` marking the patches
+that would read a remapped pixel from outside the raw image.
 """
 
 from __future__ import annotations
@@ -63,6 +66,13 @@ def _precompute_level(ref_img, uv_ref_l, X_ref, valid, fx_l, fy_l):
     return val, J / 255.0, ok & valid[..., None]
 
 
+def _level_valid(valid, level_valid, i: int):
+    """The points a level aligns: `valid`, and where a per-level mask is
+    given (a distorted camera's remapped levels, features/frame.py), its
+    entry for pyramid entry i."""
+    return valid if level_valid is None else valid & level_valid[i]
+
+
 def _damped_cholesky(J, ok, lm_lambda: float = 1e-5):
     """Cholesky factor [...,6,6] of the IC-LK Hessian with the JAX loop's
     trace-scaled damping (H is constant over a level's iterations)."""
@@ -92,6 +102,7 @@ def align(
     min_level: int = 2,
     iters: int = 30,
     start_level: int = 0,
+    level_valid=None,  # [L,N] bool per pyramid entry, ANDed with valid (or None)
 ) -> AlignResult:
     """Coarse-to-fine sparse LK alignment. Returns T with X_cur = T X_ref."""
     T = T_cur_ref_init
@@ -103,7 +114,9 @@ def align(
         s = 1.0 / (scale_factor**lvl)
         ref_img = ref_pyramid[lvl - start_level]
         cur_img = cur_pyramid[lvl - start_level]
-        patch, J, ok = _precompute_level(ref_img, uv_ref * s, X_ref, valid, fx * s, fy * s)
+        patch, J, ok = _precompute_level(ref_img, uv_ref * s, X_ref,
+                                         _level_valid(valid, level_valid, lvl - start_level),
+                                         fx * s, fy * s)
         Hinv = damped_hessian_inverse(J, ok)
         T, chi2, n = ak.align_level(
             cur_img.contiguous(), X_ref.contiguous(), patch.contiguous(), J.contiguous(),
@@ -136,6 +149,7 @@ def align_batched(
     min_level: int = 2,
     iters: int = 30,
     start_level: int = 0,
+    level_valid=None,  # [L,B,N] bool per pyramid entry, ANDed with valid (or None)
 ) -> AlignResult:
     """`align` of B references against one current pyramid (the JAX
     package's jax.vmap of the non-fused aligner). Returns an AlignResult of
@@ -150,7 +164,9 @@ def align_batched(
         s = 1.0 / (scale_factor**lvl)
         ref_img = ref_pyramids[lvl - start_level]
         cur_img = cur_pyramid[lvl - start_level]
-        patch, J, ok = _precompute_level(ref_img, uv_ref * s, X_ref, valid, fx * s, fy * s)
+        patch, J, ok = _precompute_level(ref_img, uv_ref * s, X_ref,
+                                         _level_valid(valid, level_valid, lvl - start_level),
+                                         fx * s, fy * s)
         T, chi2, n = _align_level_batched(
             cur_img.contiguous(), T, X_ref, patch.contiguous(), J.contiguous(),
             ok.contiguous(), fx * s, fy * s, cx * s, cy * s, iters,

@@ -22,7 +22,8 @@ import pytest
 import torch
 
 from sdslam_tpu_torch.features import frame as frame_mod
-from sdslam_tpu_torch.features.frame import ORBExtractor, extract_channels, graph_key
+from sdslam_tpu_torch.features.frame import (ORBExtractor, alignment_levels, extract_channels,
+                                             graph_key)
 from sdslam_tpu_torch.geometry import camera as cam_mod
 from sdslam_tpu_torch.geometry import lie
 from sdslam_tpu_torch.geometry.camera import CameraModel
@@ -114,7 +115,12 @@ def test_cpu_input_runs_eagerly(cpu_frame, recorder, form):
                                     1.0)}[form]
     with profiling.span("sdslam.orb"):
         out = ext.core(img, depth, factor)
-    _assert_equal(out, _before_split(ext, img, depth, factor))
+    # the body before the graph path, with the camera's lens taken out of
+    # the alignment levels (levels >= 2), which the pre-split body read raw
+    feats, raw, d, ur = _before_split(ext, img, depth, factor)
+    _assert_equal(out, (feats, alignment_levels(ext.cam, raw, ext.cfg.scale_factor), d, ur))
+    assert all(torch.equal(a, b) for a, b in zip(out[1][:2], raw[:2]))
+    assert not any(torch.equal(a, b) for a, b in zip(out[1][2:], raw[2:]))
     _assert_equal(out, extract_channels(ext, img, depth, factor))
     assert int(out[0].valid.sum()) > 100
     if depth is not None:
@@ -293,3 +299,29 @@ def test_a_failed_capture_raises(card, tum1, monkeypatch):
     assert ext._graphs == {}
     torch.cuda.synchronize()
     assert float(torch.ones(4, device=card).sum()) == 4.0
+
+
+@pytest.mark.card
+def test_graph_alignment_levels_equal_eager_through_a_barrel_lens(card):
+    """The euroc-mono-imu configuration (EuRoC cam0's lens, 752x480,
+    monocular u8 input): the graph's alignment levels, remapped to the
+    pinhole camera inside the graph, equal the eager path's bit for bit,
+    and are not the raw levels."""
+    from perf_bench import harness
+    from perf_bench import scene as sc
+    from perf_bench import traffic as tr
+
+    conf = json.loads((ROOT / "perf_bench/configs/euroc-mono-imu.json").read_text())
+    cfg = harness.program_config(conf, False)
+    assert cfg.camera.has_distortion
+    lap = tr.make_lap({**LAP, "lap": {**LAP["lap"], "fps": 20.0}},
+                      sc.Camera.from_yaml_keys(conf["settings"]), None, 3_141_592_653, card)
+    ext = ORBExtractor(cfg.camera, cfg.orb)
+    for img in lap.images[:4]:
+        x = torch.as_tensor(img, device=card)
+        out = ext.core(x, None, 1.0)
+        _assert_equal(out, extract_channels(ext, x, None, 1.0))
+        raw = ext.extract(x.to(torch.float32))[1]
+        assert all(torch.equal(a, b) for a, b in zip(out[1][:2], raw[:2]))
+        assert not any(torch.equal(a, b) for a, b in zip(out[1][2:], raw[2:]))
+    assert len(ext._graphs) == 1

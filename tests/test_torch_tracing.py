@@ -220,3 +220,35 @@ def test_profiler_annotations_only_while_profiling(recorder, monkeypatch, frames
     entered.clear()
     slam.track_rgbd(*frames[3])
     assert entered == []
+
+
+def test_alignment_seed_sits_in_each_tracking_core_once(facade_run):
+    """`sdslam.align`, the direct-alignment seed, is a child of every
+    tracked frame's `sdslam.track_core`, once."""
+    _, spans, _, _ = facade_run
+    by_id = {s.id: s for s in spans}
+    cores = {s.id for s in spans if s.name == "sdslam.track_core"}
+    aligns = [s for s in spans if s.name == "sdslam.align"]
+    assert len(aligns) == len(cores) == N_FRAMES - 1
+    assert sorted(s.parent for s in aligns) == sorted(cores)
+    for s in aligns:
+        assert by_id[s.parent].t0_ns <= s.t0_ns <= s.t1_ns <= by_id[s.parent].t1_ns
+
+
+def test_imu_spans_only_with_an_active_imu(recorder, frames, facade_run):
+    """`sdslam.motion.imu` (the IMU filter's predict and update) opens only
+    once IMU samples arrive, inside its `sdslam.motion` span: none in the
+    RGB-D facade's run nor before the first sample, two a tracked frame
+    after it."""
+    assert not any(s.name == "sdslam.motion.imu" for s in facade_run[1])
+    tr = RGBDTracker(_config(), device="cpu")
+    for i, (img, dep, ts) in enumerate(frames[:6]):
+        if i >= 3:
+            tr.inject_imu(np.zeros(3), np.array([0.0, -9.81, 0.0]))
+        tr.track(img, dep, ts)
+    spans = recorder.spans()
+    by_id = {s.id: s for s in spans}
+    imu = collections.Counter(s.req for s in spans if s.name == "sdslam.motion.imu")
+    assert imu == {3: 2, 4: 2, 5: 2}
+    assert {by_id[s.parent].name for s in spans if s.name == "sdslam.motion.imu"} == {
+        "sdslam.motion"}
